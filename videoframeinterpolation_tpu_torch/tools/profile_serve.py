@@ -1,0 +1,89 @@
+"""Where a 448x256 request's time goes on the card: a torch.profiler trace.
+
+    python -m videoframeinterpolation_tpu_torch.tools.profile_serve [--out chiprun_out/profile_serve.json]
+
+Serves the shipped DAT_fast student through ``load_model``, with the
+package's own settings (fp32, TF32 off, cuDNN's default algorithm choice),
+at B=1, 448x256. Traces ``--requests`` requests after warm-up, and prints
+the device kernels by total time, the deformable sampler's share, and the
+device's busy share of the traced wall time. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..config import DAT_fast
+from ..interpolate import SHIPPED_STUDENT, load_model
+
+
+def main(argv: list[str] | None = None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--requests", type=int, default=5)
+    parser.add_argument("--top", type=int, default=25)
+    parser.add_argument("--out", default=None, help="write the summary as JSON here")
+    args = parser.parse_args(argv)
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip()
+    model = load_model(DAT_fast, SHIPPED_STUDENT)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x0 = torch.rand((1, 256, 448, 3), generator=gen, device="cuda")
+    x1 = torch.roll(x0, (2, 4), dims=(1, 2))
+    t = torch.full((1, 1, 1, 1), 0.5, device="cuda")
+    with torch.inference_mode():
+        for _ in range(5):
+            model(x0, x1, t)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            model(x0, x1, t)
+        end.record()
+        torch.cuda.synchronize()
+        frame_ms = start.elapsed_time(end) / 20
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            for _ in range(args.requests):
+                model(x0, x1, t)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    kernels.sort(key=lambda e: e.device_time_total, reverse=True)
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    rows = [{"kernel": e.key[:120], "calls_per_request": e.count / args.requests,
+             "ms_per_request": e.device_time_total / 1e3 / args.requests,
+             "share": e.device_time_total / 1e3 / busy_ms if busy_ms else 0.0}
+            for e in kernels]
+    sampler = [r for r in rows if "deformable_sample_kernel" in r["kernel"]]
+    summary = {
+        "card": card,
+        "requests": args.requests,
+        "ms_per_frame_cuda_events": frame_ms,
+        "wall_ms_per_request": wall_ms / args.requests,
+        "device_busy_ms_per_request": busy_ms / args.requests,
+        "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+        "sampler_ms_per_request": sum(r["ms_per_request"] for r in sampler),
+        "sampler_share_of_busy": sum(r["share"] for r in sampler),
+        "top": rows[:args.top],
+    }
+    for r in rows[:args.top]:
+        print(f"{r['ms_per_request']:9.4f} ms {r['share']:6.1%} x{r['calls_per_request']:5.1f}  "
+              f"{r['kernel']}")
+    print(json.dumps({k: v for k, v in summary.items() if k != "top"}))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(summary, indent=1))
+
+
+if __name__ == "__main__":
+    main()
