@@ -9,20 +9,31 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      name and power limit as ``nvidia-smi`` reports them;
   1. build: compile ``videoframeinterpolation_tpu_torch/kernels/csrc/*.cu``
      with one ``nvcc`` call and load it with ctypes;
-  2. kernel: the deformable sampler kernel against its plain PyTorch
-     version on the card, at the three DAT level shapes of a 448x256
-     request and at edge cases (max |diff| <= 1e-5 in fp32);
-  3. serve: the shipped DAT_fast student at full width answers four
-     448x256 requests and one 270x480 request through the serving entry
-     point, with exactly 3 sampler launches per request;
-  4. cpu: one 448x256 request on the card (kernel path) against the same
-     model on the CPU (plain path), max |diff| <= 1e-3 on the [0, 1] frame;
-  5. times: ms/frame at 448x256 and, per DAT level, the kernel's time
-     beside its bound, its plain version's time and F.grid_sample's time.
+  2. kernel: every kernel against its plain PyTorch version on the card:
+     the deformable sampler at the three DAT level shapes of a 448x256
+     request and at edge cases (max |diff| <= 1e-5 in fp32), and in bf16 at
+     the three level shapes (within 1 bf16 ulp of the fp32 sampling of its
+     bf16 inputs, rounded once); the row and lane gathers at every shape of
+     their probes and at an odd shape (equal, max |diff| 0);
+  3. serve: the shipped DAT_fast student at full width, in the bf16 of its
+     YAML, answers four 448x256 requests and one 270x480 request through
+     the serving entry point, with exactly 3 bf16 sampler launches each;
+  4. cpu: one 448x256 request on the card against the same model on the
+     CPU (plain path): in fp32 (a float32 config), max |diff| <= 1e-3 on the
+     [0, 1] frame; in bf16, mean |diff| at most half the CPU's own gap
+     between its bf16 and fp32 frames, the limit the CPU parity test with
+     JAX sets;
+  5. times: ms/frame at 448x256 in bf16 and in fp32 and, per DAT level, the
+     sampler's time beside its bound, its plain version's time and
+     F.grid_sample's time;
+  6. gather: the two gather probes
+     (``videoframeinterpolation_tpu_torch.tools.perf.gather_probe`` and
+     ``.lane_gather_probe``) at every shape: one checked launch each,
+     times beside the bound, the plain version and ``torch.gather``.
 
 The serving entry point's ``load_model`` switches TF32 off (cuDNN
-convolutions and matmuls), so the card computes in full fp32, as the CLI
-serves, and phase 4 compares like with like.
+convolutions and matmuls), so an fp32 model computes in full fp32 on the
+card, and phase 4 compares like with like.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -31,6 +42,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -45,13 +57,14 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 _T0 = time.perf_counter()
 
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 KERNEL_TOL = 1e-5
 E2E_TOL = 1e-3
+BF16_GAP_SHARE = 0.5   # card vs CPU in bf16: at most this share of bf16's own gap
 H, W = 256, 448
 # (name, H, W, S, offset_scale) of the three DAT levels at 448x256, G = 1.
 LEVELS = (("lv3", 32, 56, 8, 2.0), ("lv2", 64, 112, 8, 4.0), ("lv1", 128, 224, 2, 8.0))
+ODD_TABLE = ((999, 77, torch.bfloat16),)   # (M, N, dtype) beside the probes' shapes
 
 
 def emit(obj) -> None:
@@ -71,20 +84,6 @@ class Phase:
         if exc_type is None:
             emit({"phase": self.name, "seconds": round(time.perf_counter() - self.t, 3)})
         return False
-
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds of ``fn()`` on the card, from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def level_inputs(gen, B2, h, w, C, G, S, scale, flow_mag=4.0):
@@ -125,20 +124,21 @@ def main() -> int:
                   "nothing was run", file=sys.stderr, flush=True)
             return 1
         kind = torch.cuda.get_device_name(0)
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], check=True, capture_output=True,
-                             text=True).stdout.strip().splitlines()[0]
-        card = smi
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], check=True, capture_output=True,
+                              text=True).stdout.strip().splitlines()[0]
         emit(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
-        emit(smi)
+        emit(card)
 
     sys.path.insert(0, str(ROOT))
     from videoframeinterpolation_tpu_torch.config import DAT_fast
     from videoframeinterpolation_tpu_torch.interpolate import (
         SHIPPED_STUDENT, interp_pair, load_model)
-    from videoframeinterpolation_tpu_torch.kernels import build
+    from videoframeinterpolation_tpu_torch.kernels import (
+        build, lane_gather, lane_gather_plain, row_gather, row_gather_plain)
     from videoframeinterpolation_tpu_torch.kernels.window_sample import (
         _grouped_deformable_sample, deformable_sample, deformable_sample_plain)
+    from videoframeinterpolation_tpu_torch.tools.perf import gather_probe, lane_gather_probe, timing
 
     with Phase("build"):
         nvcc = build.find_nvcc()
@@ -149,7 +149,7 @@ def main() -> int:
               "sources": [str(p.relative_to(ROOT)) for p in build.sources()]})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err = 0.0
+    max_err = {}
     with Phase("kernel"):
         cases = {name: level_inputs(gen, 2, h, w, 72, 1, S, sc)
                  for name, h, w, S, sc in LEVELS}
@@ -162,112 +162,215 @@ def main() -> int:
             emit({"case": name, "shape": list(res.shape), "max_abs_err": err})
             if not err <= KERNEL_TOL:
                 raise AssertionError(f"kernel vs plain, case {name}: {err} > {KERNEL_TOL}")
-            max_err = max(max_err, err)
-        # bf16 dispatch: the kernel adds res + flow in bf16 and samples in
-        # fp32, so the reference does the same and rounds once at the end;
-        # the two may differ by one bf16 ulp (2^-7 relative).
-        feat, flow, res = (x.bfloat16() for x in cases["lv3"])
-        out = deformable_sample(feat, flow, res, 1).float()
-        ref = _grouped_deformable_sample(
-            feat.float(), (res + flow[:, :, :, None, None, :]).float(), 1).bfloat16().float()
-        ulps = ((out - ref).abs() / (ref.abs() * 2.0 ** -7 + 1e-30)).max().item()
-        emit({"case": "lv3_bf16", "max_abs_err": (out - ref).abs().max().item(),
-              "max_err_in_ulps": ulps})
-        if not ulps <= 1.0:
-            raise AssertionError(f"bf16 kernel vs reference: {ulps} ulps > 1")
+            max_err["deformable_sample"] = max(max_err.get("deformable_sample", 0.0), err)
+        # bf16: the kernel takes res + flow in fp32 (as the plain version
+        # does), samples in fp32 and rounds once, so it is held against the
+        # fp32 sampling of the same bf16 inputs, rounded once: within one
+        # bf16 ulp.
+        for name, h, w, S, sc in LEVELS:
+            feat, flow, res = (x.bfloat16() for x in cases[name])
+            out = deformable_sample(feat, flow, res, 1).float()
+            torch.cuda.synchronize()
+            ref = _grouped_deformable_sample(
+                feat.float(), res.float() + flow.float()[:, :, :, None, None, :],
+                1).bfloat16().float()
+            ulps = bf16_ulps(out, ref)
+            emit({"case": f"{name}_bf16", "max_abs_err": (out - ref).abs().max().item(),
+                  "max_err_in_ulps": ulps})
+            if not ulps <= 1.0:
+                raise AssertionError(f"bf16 kernel vs reference, {name}: {ulps} ulps > 1")
+        for kernel, plain, axis, shapes in (
+                (row_gather, row_gather_plain, 0, gather_probe.SHAPES + ODD_TABLE),
+                (lane_gather, lane_gather_plain, 1, lane_gather_probe.SHAPES + ODD_TABLE)):
+            for M, N, dtype in shapes:
+                x = torch.randn((M, N), generator=gen, device="cuda", dtype=dtype)
+                # More index rows (row gather) or fewer columns (lane gather)
+                # than the table has, to hold the kernels to take_along_axis.
+                idx_shape = (M + 5, N) if axis == 0 else (M, N - 3)
+                idx = torch.randint(0, (M, N)[axis], idx_shape, generator=gen, device="cuda",
+                                    dtype=torch.int32)
+                out = kernel(x, idx)
+                torch.cuda.synchronize()
+                err = (out.float() - plain(x, idx).float()).abs().max().item()
+                emit({"case": kernel.__name__, "table": [M, N], "index": list(idx.shape),
+                      "dtype": str(dtype), "max_abs_err": err})
+                if not (err == 0.0 and torch.equal(out, plain(x, idx))):
+                    raise AssertionError(f"{kernel.__name__} vs plain at {M}x{N} {dtype}: {err}")
+                max_err[kernel.__name__] = max(max_err.get(kernel.__name__, 0.0), err)
 
     rng = np.random.default_rng(0)
     tex = smooth_texture(rng, 320, 512)
     shift = (4, 8)   # (dy, dx) between frame 0 and frame 1
     with Phase("serve"):
         model = load_model(DAT_fast, SHIPPED_STUDENT, device="cuda")
+        if model.dtype != torch.bfloat16 or DAT_fast.compute_dtype != "bfloat16":
+            raise AssertionError(f"DAT_fast served in {model.dtype}, its YAML says bfloat16")
         if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
-            raise AssertionError("load_model left TF32 on: the card would not serve fp32")
+            raise AssertionError("load_model left TF32 on: an fp32 model would not compute fp32")
         n_params = sum(p.numel() for p in model.parameters())
         emit({"checkpoint": str(SHIPPED_STUDENT.relative_to(ROOT)), "nf": DAT_fast.nf,
-              "params": n_params})
+              "params": n_params, "dtype": str(model.dtype)})
         requests = [((H, W), 0.5), ((H, W), 0.25), ((H, W), 0.5), ((H, W), 0.25),
                     ((270, 480), 0.5)]
-        deformable_sample.launches = 0
+        deformable_sample.launches = deformable_sample.bf16_launches = 0
         for i, ((h, w), t) in enumerate(requests):
             f0, f1, mid = frames(tex, h, w, shift, t)
-            before = deformable_sample.launches
+            before, before_bf16 = deformable_sample.launches, deformable_sample.bf16_launches
             start = time.perf_counter()
             pred = interp_pair(model, f0, f1, t)
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - start) * 1e3
             launched = deformable_sample.launches - before
+            launched_bf16 = deformable_sample.bf16_launches - before_bf16
             if pred.shape != (h, w, 3) or pred.dtype != np.uint8:
                 raise AssertionError(f"request {i}: got {pred.dtype} {pred.shape}")
-            if launched != 3:
-                raise AssertionError(f"request {i}: {launched} sampler launches, expected 3")
+            if launched != 3 or launched_bf16 != 3:
+                raise AssertionError(f"request {i}: {launched} sampler launches, "
+                                     f"{launched_bf16} in bf16; expected 3 bf16")
             emit({"request": i, "hw": [h, w], "t": t, "host_ms": round(host_ms, 3),
-                  "launches": launched, "psnr_vs_shifted_mid": round(psnr(pred, mid), 3),
+                  "launches": launched, "bf16_launches": launched_bf16,
+                  "psnr_vs_shifted_mid": round(psnr(pred, mid), 3),
                   "psnr_frame0_vs_mid": round(psnr(f0, mid), 3)})
         main_path_launches = deformable_sample.launches
-        emit({"main_path_launches": main_path_launches, "requests": len(requests)})
+        emit({"main_path_launches": main_path_launches,
+              "bf16_launches": deformable_sample.bf16_launches, "requests": len(requests)})
 
+    fp32_cfg = dataclasses.replace(DAT_fast, compute_dtype="float32")
     with Phase("cpu"):
         torch.set_num_threads(os.cpu_count() or 1)
         f0, f1, _ = frames(tex, H, W, shift, 0.5)
         x0, x1 = (torch.from_numpy(f.astype(np.float32) / 255.0)[None] for f in (f0, f1))
         t5 = torch.full((1, 1, 1, 1), 0.5)
+        model32 = load_model(fp32_cfg, SHIPPED_STUDENT, device="cuda")
         with torch.inference_mode():
-            gpu = model(x0.cuda(), x1.cuda(), t5.cuda()).cpu()
-            cpu_model = load_model(DAT_fast, SHIPPED_STUDENT, device="cpu")
-            cpu = cpu_model(x0, x1, t5)
-        if not (torch.isfinite(gpu).all() and gpu.shape == (1, H, W, 3)):
-            raise AssertionError(f"card output: shape {tuple(gpu.shape)} or non-finite")
-        e2e_err = (gpu - cpu).abs().max().item()
-        emit({"e2e_max_abs_err_vs_cpu": e2e_err, "mean_abs_err": (gpu - cpu).abs().mean().item(),
-              "tol": E2E_TOL})
+            on_card = {"float32": model32(x0.cuda(), x1.cuda(), t5.cuda()).cpu(),
+                       "bfloat16": model(x0.cuda(), x1.cuda(), t5.cuda()).cpu()}
+            cpu, cpu_s = {}, {}
+            for cfg in (fp32_cfg, DAT_fast):
+                start = time.perf_counter()
+                cpu[cfg.compute_dtype] = load_model(cfg, SHIPPED_STUDENT, device="cpu")(x0, x1, t5)
+                cpu_s[cfg.compute_dtype] = round(time.perf_counter() - start, 3)
+        for name, out in on_card.items():
+            if not (out.dtype == torch.float32 and torch.isfinite(out).all()
+                    and out.shape == (1, H, W, 3)):
+                raise AssertionError(f"card output ({name}): {out.dtype} {tuple(out.shape)} "
+                                     "or non-finite")
+        e2e_err = (on_card["float32"] - cpu["float32"]).abs().max().item()
+        emit({"fp32_max_abs_err_vs_cpu": e2e_err,
+              "mean_abs_err": (on_card["float32"] - cpu["float32"]).abs().mean().item(),
+              "tol": E2E_TOL, "cpu_seconds": cpu_s["float32"]})
         if not e2e_err <= E2E_TOL:
-            raise AssertionError(f"card vs CPU: {e2e_err} > {E2E_TOL}")
+            raise AssertionError(f"card vs CPU, fp32: {e2e_err} > {E2E_TOL}")
+        bf16_gap = (cpu["bfloat16"] - cpu["float32"]).abs().mean().item()
+        bf16_err = (on_card["bfloat16"] - cpu["bfloat16"]).abs().mean().item()
+        emit({"bf16_mean_abs_err_vs_cpu": bf16_err,
+              "max_abs_err": (on_card["bfloat16"] - cpu["bfloat16"]).abs().max().item(),
+              "cpu_bf16_vs_fp32_mean_abs": bf16_gap, "limit": BF16_GAP_SHARE * bf16_gap,
+              "share_of_gap": bf16_err / bf16_gap, "cpu_seconds": cpu_s["bfloat16"]})
+        if not bf16_err <= BF16_GAP_SHARE * bf16_gap:
+            raise AssertionError(f"card vs CPU, bf16: mean {bf16_err} > {BF16_GAP_SHARE} x "
+                                 f"{bf16_gap}")
 
-    per_level = {}
+    per_level = {"bfloat16": {}, "float32": {}}
+    # The CPU threads of phase 4 would compete with the thread that issues
+    # the card's work.
+    torch.set_num_threads(1)
     with Phase("times"):
         xs = (x0.cuda(), x1.cuda(), t5.cuda())
         with torch.inference_mode():
-            frame_ms = cuda_ms(lambda: model(*xs), iters=20, warmup=5)
-        emit({"ms_per_frame_448x256_fp32": frame_ms, "card": card})
+            for name, m in (("bf16", model), ("fp32", model32)):
+                frame_ms = timing.loop_ms(lambda: m(*xs), 20, warmup=5) / 20
+                emit({f"ms_per_frame_448x256_{name}": frame_ms, "card": card})
         for name, h, w, S, sc in LEVELS:
-            feat, flow, res = level_inputs(gen, 2, h, w, 72, 1, S, sc)
-            per_level[name] = level_times(feat, flow, res, deformable_sample,
-                                          deformable_sample_plain)
-            emit({"level": name, **per_level[name], "card": card})
+            for dtype in (torch.bfloat16, torch.float32):
+                feat, flow, res = (x.to(dtype) for x in level_inputs(gen, 2, h, w, 72, 1, S, sc))
+                per_level[str(dtype).removeprefix("torch.")][name] = level_times(
+                    feat, flow, res, deformable_sample, deformable_sample_plain)
+                emit({"level": name, "dtype": str(dtype),
+                      **per_level[str(dtype).removeprefix("torch.")][name],
+                      "card": card})
 
-    def total(key):
-        return sum(v[key] for v in per_level.values())
+    probes = {}
+    with Phase("gather"):
+        row_gather.launches = lane_gather.launches = 0
+        probes["row_gather"] = gather_probe.main()
+        probes["lane_gather"] = lane_gather_probe.main()
+        gather_launches = {"row_gather": row_gather.launches,
+                           "lane_gather": lane_gather.launches}
+        emit({"main_path_launches": gather_launches})
+        for name, rows in probes.items():
+            if gather_launches[name] != len(rows) or not all(r["exact"] for r in rows):
+                raise AssertionError(f"{name}: {gather_launches[name]} launches for "
+                                     f"{len(rows)} shapes, or a result that is not exact")
 
-    emit({"kernels": [{
+    def total(rows, key):
+        return sum(r[key] for r in rows)
+
+    levels = list(per_level["bfloat16"].values())
+    kernels = [{
         "name": "deformable_sample",
         "route": "cuda",
         "source": "videoframeinterpolation_tpu_torch/kernels/csrc/deformable_sample.cu",
         "replaces": "videoframeinterpolation_tpu/kernels/window_sample.py:158",
         "launches": main_path_launches,
-        "max_abs_err": max_err,
-        "ms": total("ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": "bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
-        "library_ms": total("library_ms"),
+        "max_abs_err": max_err["deformable_sample"],
+        "ms": total(levels, "ms"),
+        "plain_ms": total(levels, "plain_ms"),
+        "bound_ms": total(levels, "bound_ms"),
+        "bound_by": ("bytes" if total(levels, "bytes_ms") >= total(levels, "ops_ms")
+                     else "operations"),
+        "library_ms": total(levels, "library_ms"),
+        "dtype": "bfloat16",
         "per_level": per_level,
         "card": card,
-    }]})
+    }]
+    for name, replaces in (("row_gather", "tools/perf/pallas_gather_probe.py:11"),
+                           ("lane_gather", "tools/perf/pallas_lane_gather_probe.py:14")):
+        rows = probes[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "videoframeinterpolation_tpu_torch/kernels/csrc/gather.cu",
+            "replaces": replaces,
+            "launches": gather_launches[name],
+            "max_abs_err": max(max_err[name], max(r["max_abs_err"] for r in rows)),
+            "ms": total(rows, "ms"),
+            "plain_ms": total(rows, "plain_ms"),
+            "bound_ms": total(rows, "bound_ms"),
+            "bound_by": "bytes",
+            "library_ms": total(rows, "library_ms"),
+            "per_shape": rows,
+            "card": card,
+        })
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
 
 
+def bf16_ulps(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest ``|out - ref|`` in units of the bf16 spacing at
+    ``max(|out|, |ref|)`` (8 significant bits)."""
+    mag = torch.maximum(out.abs(), ref.abs())
+    _, exp = torch.frexp(mag)   # mag = m * 2**exp with m in [0.5, 1)
+    ulp = torch.ldexp(torch.ones_like(mag), exp - 8).clamp_min(2.0 ** -133)
+    return ((out - ref).abs() / ulp).max().item()
+
+
 def level_times(feat, flow, res, kernel, plain) -> dict:
     """One DAT level's sampler: kernel, plain version, bound and
-    ``F.grid_sample`` on the same work (its inputs arranged beforehand)."""
+    ``F.grid_sample`` on the same work (its inputs arranged beforehand).
+    The kernel's and F.grid_sample's times are on the device's clock (calls
+    captured in a CUDA graph); ``host_ms`` is the kernel issued from Python."""
+    from videoframeinterpolation_tpu_torch.tools.perf.timing import (
+        bytes_bound_ms, device_marginal_ms, loop_ms)
     B2, h, w, C = feat.shape
     G, S = res.shape[3], res.shape[4]
     calls = kernel.launches
-    ms = cuda_ms(lambda: kernel(feat, flow, res, G), iters=50)
+    ms = device_marginal_ms(lambda: kernel(feat, flow, res, G), n_hi=17)
+    host_ms = loop_ms(lambda: kernel(feat, flow, res, G), 50) / 50
     kernel.launches = calls   # timing launches are not main-path launches
-    plain_ms = cuda_ms(lambda: plain(feat, flow, res, G), iters=10)
+    plain_ms = loop_ms(lambda: plain(feat, flow, res, G), 10) / 10
 
     # Library yardstick: NCHW input and a normalized (align_corners) grid.
     gy, gx = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float32),
@@ -276,19 +379,19 @@ def level_times(feat, flow, res, kernel, plain) -> dict:
     coords = torch.stack([gx, gy], -1)[None, :, :, None, None] + (res + flow[:, :, :, None, None])
     coords = coords.permute(0, 3, 4, 1, 2, 5).reshape(B2 * G, S * h, w, 2)
     grid = torch.stack([coords[..., 0] * (2.0 / (w - 1)) - 1.0,
-                        coords[..., 1] * (2.0 / (h - 1)) - 1.0], -1).contiguous()
+                        coords[..., 1] * (2.0 / (h - 1)) - 1.0], -1).to(feat.dtype).contiguous()
     inp = feat.reshape(B2, h, w, G, C // G).permute(0, 3, 4, 1, 2).reshape(
         B2 * G, C // G, h, w).contiguous()
-    library_ms = cuda_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
-                                               padding_mode="zeros", align_corners=True),
-                         iters=50)
+    library_ms = device_marginal_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                                          padding_mode="zeros",
+                                                          align_corners=True), n_hi=17)
 
     esize = feat.element_size()
     nbytes = esize * (B2 * S * h * w * C + feat.numel() + flow.numel() + res.numel())
     flops = 7 * B2 * S * h * w * C   # 4 multiplies and 3 adds per output element
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bytes_ms = bytes_bound_ms(nbytes)
     ops_ms = flops / FP32_FLOPS_PER_S * 1e3
-    return {"shape": [B2, h, w, C, G, S], "ms": ms, "plain_ms": plain_ms,
+    return {"shape": [B2, h, w, C, G, S], "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bytes": nbytes,
             "share_of_bound": max(bytes_ms, ops_ms) / ms}

@@ -1,11 +1,12 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
-``chip_smoke.py`` holds the kernel against its plain version at the DAT
-level shapes and its edge cases; these tests add what it does not cover:
-odd sizes with many groups and large residuals, and one counted launch
-per call.
+``chip_smoke.py`` holds the kernels against their plain versions at the
+shapes of the serving path and of the gather probes; these tests add what
+it does not cover: odd sizes (the sampler with many groups and large
+residuals, the gathers at a table height that is no multiple of 32), and
+one counted launch per call.
 
-These tests need an NVIDIA card with nvcc (the kernel has no CPU mode) and
+These tests need an NVIDIA card with nvcc (the kernels have no CPU mode) and
 skip without one. On the card's machine, which has no JAX, run them without
 the JAX test configuration::
 
@@ -15,7 +16,9 @@ the JAX test configuration::
 import pytest
 import torch
 
-from videoframeinterpolation_tpu_torch.kernels import deformable_sample, deformable_sample_plain
+from videoframeinterpolation_tpu_torch.kernels import (
+    deformable_sample, deformable_sample_plain, lane_gather, lane_gather_plain, row_gather,
+    row_gather_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -25,7 +28,7 @@ TOL = 1e-5   # same taps in the same order, products and sums without FMA
 @pytest.fixture
 def gen():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the deformable_sample kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the port's CUDA kernels have no CPU mode")
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -46,7 +49,30 @@ def test_kernel_matches_plain_version(gen):
 
 def test_each_call_is_one_counted_launch(gen):
     feat, flow, res = _inputs(gen, 2, 8, 8, 16, 1, 4, 2.0)
-    before = deformable_sample.launches
+    before, before_bf16 = deformable_sample.launches, deformable_sample.bf16_launches
     deformable_sample(feat, flow, res, 1)
-    deformable_sample(feat, flow, res, 1)
+    deformable_sample(feat.bfloat16(), flow.bfloat16(), res.bfloat16(), 1)
     assert deformable_sample.launches == before + 2
+    assert deformable_sample.bf16_launches == before_bf16 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_gather_matches_plain_version(gen, dtype):
+    x = torch.randn((1001, 77), generator=gen, device="cuda").to(dtype)
+    idx = torch.randint(0, 1001, (45, 77), generator=gen, device="cuda", dtype=torch.int32)
+    before = row_gather.launches
+    out = row_gather(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, row_gather_plain(x, idx))
+    assert row_gather.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lane_gather_matches_plain_version(gen, dtype):
+    x = torch.randn((1001, 77), generator=gen, device="cuda").to(dtype)
+    idx = torch.randint(0, 77, (1001, 45), generator=gen, device="cuda", dtype=torch.int32)
+    before = lane_gather.launches
+    out = lane_gather(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, lane_gather_plain(x, idx))
+    assert lane_gather.launches == before + 1

@@ -1,4 +1,4 @@
-"""The port's ops and blocks against the JAX package (CPU, fp32).
+"""The port's ops and blocks against the JAX package (CPU, fp32 and bf16).
 
 Each module is initialised by flax, its parameters are perturbed with seeded
 noise (so the zero-initialised offset and mask convs are not zero), and the
@@ -8,6 +8,14 @@ with numpy from a seed and fed to both sides.
 Tolerances: 1e-5 max abs for the sampling and resizing ops, whose arithmetic
 is the same step for step; 2e-5 for blocks with convolutions, whose sums the
 two frameworks take in different orders.
+
+bf16 cases (the JAX module or function jitted with ``dtype=bfloat16``, the
+port's module cast to bf16, the same bf16 inputs): at least 99% of the
+output elements equal, and none further apart than one bf16 ulp of the
+largest output (2^-7 of max |ref|). The port rounds to bf16 where the JAX
+code does, so the two agree exactly except where the frameworks' fp32 sums
+straddle a bf16 rounding boundary; a rounding step in another place shows
+as a far lower share of equal elements.
 """
 
 import numpy as np
@@ -28,6 +36,7 @@ from videoframeinterpolation_tpu_torch.models.base import norm_w_rgb_mean
 
 OP_TOL = 1e-5
 BLOCK_TOL = 2e-5
+BF16_EQUAL_SHARE = 0.99
 
 
 @pytest.fixture(autouse=True)
@@ -55,18 +64,44 @@ def _close(out, ref, tol):
     np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
 
 
-def _compare_module(jax_module, port_module, inputs, seed, tol=BLOCK_TOL, noise=0.1):
-    """Run flax and port modules with identical (perturbed) parameters."""
+def _close_bf16(out, ref):
+    if isinstance(ref, (tuple, list)):
+        assert len(out) == len(ref)
+        for o, r in zip(out, ref):
+            _close_bf16(o, r)
+        return
+    assert out.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    out = out.detach().float().numpy()
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert out.shape == ref.shape
+    equal = np.mean(out == ref)
+    err = np.abs(out - ref).max()
+    print(f"bf16: {equal:.4%} of elements equal, max abs {err:.3e}")
+    assert equal >= BF16_EQUAL_SHARE
+    assert err <= np.abs(ref).max() * 2.0 ** -7
+
+
+def _compare_module(jax_module, port_module, inputs, seed, tol=BLOCK_TOL, noise=0.1,
+                    bf16=False):
+    """Run flax and port modules with identical (perturbed) parameters; with
+    ``bf16``, the flax module computes in bf16 (it was built with that
+    dtype), the port's module is cast to bf16 and both get the inputs in bf16."""
     rng = np.random.default_rng(seed)
-    jin = [jnp.asarray(x) for x in inputs]
+    jin = [jnp.asarray(x, jnp.bfloat16 if bf16 else None) for x in inputs]
     params = jax.jit(jax_module.init)(jax.random.key(seed), *jin)["params"]
     params = jax.tree_util.tree_map(
         lambda p: np.asarray(p) + rng.normal(0, noise, p.shape).astype(np.float32), params)
     ref = jax.jit(jax_module.apply)({"params": params}, *jin)
+    if bf16:
+        port_module.to(torch.bfloat16)
     port_module.load_state_dict(params_from_flax({"params": params}, port_module))
     with torch.no_grad():
-        out = port_module(*[_t(x) for x in inputs])
-    _close(out, ref, tol)
+        out = port_module(*[_t(x).to(torch.bfloat16 if bf16 else torch.float32)
+                            for x in inputs])
+    if bf16:
+        _close_bf16(out, ref)
+    else:
+        _close(out, ref, tol)
 
 
 # ---------------------------------------------------------------- ops
@@ -107,6 +142,25 @@ def test_deform_conv2d_matches_jax():
     ref = jops.deform_conv2d(x, offset, mask, weight, bias)
     out = pops.deform_conv2d(_t(x), _t(offset), _t(mask), _t(weight), _t(bias))
     _close(out, ref, OP_TOL)
+
+
+def test_deform_conv2d_matches_jax_in_bf16():
+    """JAX contracts in fp32 and rounds once to bf16 before the bias; so
+    does the port. Weight and bias stay fp32 leaves on both sides."""
+    rng = np.random.default_rng(3)
+    B, H, W, Cin, Cout, G = 2, 6, 7, 16, 8, 8
+    x = jnp.asarray(_rand(rng, B, H, W, Cin), jnp.bfloat16)
+    offset = jnp.asarray(_rand(rng, B, H, W, G, 9, 2, scale=2.5), jnp.bfloat16)
+    mask = jnp.asarray(rng.uniform(0, 1, (B, H, W, G, 9)).astype(np.float32), jnp.bfloat16)
+    weight = _rand(rng, G, 9, Cin // G, Cout // G, scale=0.3)
+    bias = _rand(rng, Cout)
+    ref = jax.jit(jops.deform_conv2d)(x, offset, mask, weight, bias)
+
+    def bf(a):
+        return _t(np.asarray(a.astype(jnp.float32))).bfloat16()
+
+    out = pops.deform_conv2d(bf(x), bf(offset), bf(mask), _t(weight), _t(bias))
+    _close_bf16(out, ref)
 
 
 def test_norm_w_rgb_mean_matches_jax():
@@ -159,9 +213,12 @@ def test_half_channel_conv5_res_block_matches_jax(final_activation):
                     [x], seed=14)
 
 
-def test_feed_forward_matches_jax():
+@pytest.mark.parametrize("bf16", [False, True])
+def test_feed_forward_matches_jax(bf16):
     x = _rand(np.random.default_rng(15), 2, 5, 3, 6)
-    _compare_module(jnn.FeedForward(12, 6), pnn.FeedForward(6, 12, 6), [x], seed=15)
+    dtype = jnp.bfloat16 if bf16 else None
+    _compare_module(jnn.FeedForward(12, 6, dtype=dtype), pnn.FeedForward(6, 12, 6), [x],
+                    seed=15, bf16=bf16)
 
 
 def test_same_channel_res_encoder_matches_jax():
@@ -177,11 +234,13 @@ def test_pixel_shuffle_generator_matches_jax():
                     pnn.BasicResPixelShuffleGenerator(8, 2), [feat, mean], seed=17)
 
 
-def test_deformable_conv_layer_matches_jax():
+@pytest.mark.parametrize("bf16", [False, True])
+def test_deformable_conv_layer_matches_jax(bf16):
     rng = np.random.default_rng(18)
     x, mv = _rand(rng, 2, 6, 6, 16), _rand(rng, 2, 6, 6, 16)
-    _compare_module(jnn.DeformableConv2d(16), pnn.DeformableConv2d(16, 16, 16), [x, mv],
-                    seed=18)
+    dtype = jnp.bfloat16 if bf16 else None
+    _compare_module(jnn.DeformableConv2d(16, dtype=dtype), pnn.DeformableConv2d(16, 16, 16),
+                    [x, mv], seed=18, bf16=bf16)
 
 
 def test_query_builder_matches_jax():
@@ -192,11 +251,13 @@ def test_query_builder_matches_jax():
                     [f0, f1, t], seed=19)
 
 
-def test_sample_attention_matches_jax():
+@pytest.mark.parametrize("bf16", [False, True])
+def test_sample_attention_matches_jax(bf16):
     rng = np.random.default_rng(20)
     q, kv = _rand(rng, 2, 4, 5, 8), _rand(rng, 2, 6, 20, 8)
-    _compare_module(jnn.SampleAttention(8, 6, 2), pnn.SampleAttention(8, 8, 6, 2), [q, kv],
-                    seed=20)
+    dtype = jnp.bfloat16 if bf16 else None
+    _compare_module(jnn.SampleAttention(8, 6, 2, dtype=dtype), pnn.SampleAttention(8, 8, 6, 2),
+                    [q, kv], seed=20, bf16=bf16)
 
 
 @pytest.mark.parametrize("shared_offsets,pred_res_flow", [(True, True), (False, True),

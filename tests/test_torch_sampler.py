@@ -1,4 +1,4 @@
-"""The port's deformable sampler and grid_sample against the JAX package (CPU, fp32).
+"""The port's deformable sampler and grid_sample against the JAX package (CPU, fp32 and bf16).
 
 The port's ``deformable_sample`` runs its plain PyTorch version on CPU
 tensors. It is held against JAX's ``_grouped_deformable_sample`` (the
@@ -7,9 +7,17 @@ function the flagship runs) and against the Pallas
 ``tests/test_window_sample.py``. Tolerance: 1e-5 max abs in fp32 (the two
 compute the same taps in the same order; the Pallas kernel resolves the
 taps in window-local coordinates, so it may differ in the last bits).
+
+bf16: the plain version against the JAX model's own sampling step, jitted
+(``_grouped_deformable_sample(feat, res + flow, G)`` on bf16 inputs), at the
+three DAT level cases: equal element for element. XLA takes the bf16 sum
+``res + flow``, which the JAX code then casts to fp32, in fp32; the plain
+version does the same, and rounds the tap weights, products and sums to
+bf16 where the JAX code does.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -66,6 +74,18 @@ def test_deformable_sample_matches_jax_grouped_sampler(name):
     out = _port(feat, flow, residual, G)
     assert out.shape == (B2, S, H * W, C)
     np.testing.assert_allclose(out, np.asarray(ref), rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("name", ["dat_fast_lv3", "dat_fast_lv2", "dat_fast_lv1"])
+def test_deformable_sample_matches_the_jax_model_step_in_bf16(name):
+    B2, H, W, G, S, C, sc, mag, seed = CASES[name]
+    feat, flow, residual = (jnp.asarray(a, jnp.bfloat16) for a in _case(*CASES[name]))
+    ref = jax.jit(lambda f, fl, r: jax_grouped_sample(f, r + fl[:, :, :, None, None, :], G))(
+        feat, flow, residual)
+    out = deformable_sample(*(torch.from_numpy(np.asarray(a.astype(jnp.float32))).bfloat16()
+                              for a in (feat, flow, residual)), G)
+    assert out.dtype == torch.bfloat16 and out.shape == (B2, S, H * W, C)
+    np.testing.assert_array_equal(out.float().numpy(), np.asarray(ref.astype(jnp.float32)))
 
 
 @pytest.mark.parametrize("name", PALLAS_CASES)

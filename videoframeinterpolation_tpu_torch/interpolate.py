@@ -10,18 +10,16 @@ to a multiple of 16). The model is the ``DAT_fast`` flagship with the
 shipped distilled student's weights unless ``--ckpt`` names another flax
 msgpack checkpoint of the same architecture.
 
-This module owns the serving precision: :func:`load_model` serves every
-model in full fp32. A config's ``compute_dtype="bfloat16"`` (as in
-``configs/DAT_fast.yaml``) is served in float32, because bf16 compute is
-not ported yet, and on a CUDA device TF32 is switched off, process-wide,
-for cuDNN convolutions and for matmuls, so the card computes what the CPU
-computes.
+:func:`load_model` serves a config in its ``compute_dtype``, as the JAX
+CLI does: ``DAT_fast`` (``configs/DAT_fast.yaml``) in bf16, a config with
+``compute_dtype="float32"`` in fp32. On a CUDA device it switches TF32 off,
+process-wide, for cuDNN convolutions and for matmuls, so that an fp32
+model computes in full fp32 on the card, as on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -47,11 +45,11 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 def load_model(cfg: Config, ckpt: str | Path, device: str = "cuda") -> torch.nn.Module:
-    """Build ``cfg``'s model in fp32, load a flax msgpack checkpoint into it
-    and put it on ``device`` in eval mode. On CUDA this switches TF32 off
-    (see the module docstring)."""
+    """Build ``cfg``'s model in ``cfg.compute_dtype``, load a flax msgpack
+    checkpoint into it and put it on ``device`` in eval mode. On CUDA this
+    switches TF32 off (see the module docstring)."""
     device = resolve_device(device)
-    model = create_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    model = create_model(cfg)
     model.load_state_dict(params_from_flax(read_flax_msgpack(ckpt), model))
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False

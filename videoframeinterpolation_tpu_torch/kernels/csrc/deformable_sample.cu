@@ -12,10 +12,18 @@
 //
 // with floor-based taps and a zeros mask per tap (0 <= xi <= W-1,
 // 0 <= yi <= H-1), as in videoframeinterpolation_tpu/ops/interp.py:119-190.
-// The association follows the JAX model: off = res + flow in the input's
-// type (nn/deformable_attn.py:256), then base + off (:115). Products and sums
-// use the _rn intrinsics so that nvcc contracts nothing into an FMA, and the
-// fp32 result matches the plain version's tap for tap.
+// The association follows the JAX model: off = res + flow
+// (nn/deformable_attn.py:256), then base + off (:115). The model casts off to
+// fp32 right after the add, and XLA then takes the add itself in fp32, so for
+// bf16 inputs too off is the fp32 sum of the two bf16 values. Products and
+// sums use the _rn intrinsics so that nvcc contracts nothing into an FMA, and
+// the fp32 result matches the plain version's tap for tap.
+//
+// bf16 semantics: the coordinates are exactly the plain version's; the taps'
+// weights, products and sums are fp32, and the result is rounded to bf16 once.
+// (The plain version, like JAX, rounds the weights and every product and sum
+// to bf16, so the two may differ by a few bf16 ulps; the kernel is within one
+// ulp of the fp32 sampling of its bf16 inputs.)
 //
 // Layout: feat (B2, H, W, C), flow (B2, H, W, 2), residual (B2, H, W, G, S, 2),
 // out (B2, S, H*W, C), all contiguous; G divides C.
@@ -52,12 +60,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// res + flow rounded to the input's type, as the model adds them.
-template <typename T>
-__device__ __forceinline__ float add_in_type(T a, T b) {
-  return to_f32(from_f32<T>(__fadd_rn(to_f32(a), to_f32(b))));
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 deformable_sample_kernel(const T* __restrict__ feat, const T* __restrict__ flow,
@@ -84,8 +86,8 @@ deformable_sample_kernel(const T* __restrict__ feat, const T* __restrict__ flow,
 
   for (int g = 0; g < G; ++g) {
     const T* r = residual + ((pix * G + g) * S + s) * 2;
-    const float x = __fadd_rn((float)qx, add_in_type(r[0], fx));
-    const float y = __fadd_rn((float)qy, add_in_type(r[1], fy));
+    const float x = __fadd_rn((float)qx, __fadd_rn(to_f32(r[0]), to_f32(fx)));
+    const float y = __fadd_rn((float)qy, __fadd_rn(to_f32(r[1]), to_f32(fy)));
     const float x0f = floorf(x);
     const float y0f = floorf(y);
     const float wx = __fsub_rn(x, x0f);

@@ -51,9 +51,10 @@ def _grouped_deformable_sample(feat: torch.Tensor, ref_offsets: torch.Tensor,
 def deformable_sample_plain(feat: torch.Tensor, flow: torch.Tensor,
                             residual: torch.Tensor, n_groups: int) -> torch.Tensor:
     """The kernel's function in plain PyTorch (the CPU path and the
-    kernel's oracle)."""
-    return _grouped_deformable_sample(feat, residual + flow[:, :, :, None, None, :],
-                                      n_groups)
+    kernel's oracle). ``residual + flow`` is taken in fp32, as XLA takes the
+    JAX model's ``res + flow`` that it then casts to fp32."""
+    return _grouped_deformable_sample(
+        feat, residual.float() + flow.float()[:, :, :, None, None, :], n_groups)
 
 
 def _check(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Tensor,
@@ -93,8 +94,9 @@ def deformable_sample(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Te
       ``(B2, S, H*W, C)``, in ``feat``'s dtype (fp32 or bf16).
 
     On a CUDA tensor this launches ``vfi_deformable_sample_*`` on the
-    current stream and adds one to ``deformable_sample.launches``; on a CPU
-    tensor it runs :func:`deformable_sample_plain`.
+    current stream and adds one to ``deformable_sample.launches`` (and, for
+    bf16, to ``deformable_sample.bf16_launches``); on a CPU tensor it runs
+    :func:`deformable_sample_plain`.
     """
     _check(feat, flow, residual, n_groups)
     if feat.device.type == "cpu":
@@ -112,7 +114,10 @@ def deformable_sample(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Te
     if err != 0:
         raise RuntimeError(f"{_KERNELS[feat.dtype]} failed to launch: cudaError {err}")
     deformable_sample.launches += 1
+    if feat.dtype == torch.bfloat16:
+        deformable_sample.bf16_launches += 1
     return out
 
 
 deformable_sample.launches = 0
+deformable_sample.bf16_launches = 0

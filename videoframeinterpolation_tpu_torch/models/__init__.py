@@ -1,9 +1,12 @@
 """Model registry (counterpart of ``videoframeinterpolation_tpu/models/__init__.py``).
 
-Only the flagship is ported in this slice, and it serves fp32.
+Only the flagship is ported so far. ``compute_dtype`` maps as in the JAX
+registry (``videoframeinterpolation_tpu/models/__init__.py:32-36``).
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..config import Config
 from .dat import DATwConstantnC
@@ -21,24 +24,27 @@ def _dat(c: Config) -> DATwConstantnC:
 
 
 MODEL_REGISTRY = {"DATwConstantnC": _dat, "DATwConstantnCv1": _dat}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def create_model(cfg: Config) -> DATwConstantnC:
-    """Build ``cfg``'s model with fp32 parameters and compute.
+    """Build ``cfg``'s model with its parameters in ``cfg.compute_dtype``.
 
-    ``compute_dtype="bfloat16"`` raises: bf16 compute waits for a later
-    slice. ``interpolate.load_model`` serves such configs in float32.
+    The model computes in the dtype of its parameters. Flax keeps fp32
+    parameters and casts each kernel and bias to the compute dtype at every
+    call; rounding them once here gives the same values.
     """
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port serves float32 only "
-            "so far; interpolate.load_model serves bf16 configs in float32")
+    try:
+        dtype = DTYPES[cfg.compute_dtype]
+    except KeyError:
+        raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}; "
+                         f"expected one of {sorted(DTYPES)}") from None
     try:
         build = MODEL_REGISTRY[cfg.model_name]
     except KeyError:
         raise ValueError(f"unknown model {cfg.model_name!r}; ported: "
                          f"{sorted(MODEL_REGISTRY)}") from None
-    return build(cfg)
+    return build(cfg).to(dtype)
 
 
 __all__ = ["DATwConstantnC", "create_model", "MODEL_REGISTRY"]

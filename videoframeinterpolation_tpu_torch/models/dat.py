@@ -59,10 +59,17 @@ class DATwConstantnC(nn.Module):
             movement_nf=mv1, **common)
         self.pixel_generator = BasicResPixelShuffleGenerator(nf, dec_res_blocks)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype: that of the parameters."""
+        return self.lv4_to_lv3.weight.dtype
+
     def encode(self, x0: torch.Tensor, x1: torch.Tensor):
-        """The t-invariant stage: normalization and the shared-weight
-        feature pyramid on both frames batched together (2B)."""
+        """The t-invariant stage: normalization (in the input's dtype) and the
+        shared-weight feature pyramid on both frames batched together (2B),
+        in the compute dtype; ``mean`` keeps the input's dtype."""
         x0n, x1n, mean = norm_w_rgb_mean(x0, x1)
+        x0n, x1n = x0n.to(self.dtype), x1n.to(self.dtype)
         feats = self.feature_encoder(torch.cat([x0n, x1n], dim=0))
         return feats, mean
 
@@ -88,6 +95,6 @@ class DATwConstantnC(nn.Module):
 
     def forward(self, x0: torch.Tensor, x1: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """``x0, x1 (B, H, W, 3)`` in [0, 1] with H, W divisible by 16,
-        ``t (B, 1, 1, 1)``; returns the ``(B, H, W, 3)`` frame at t."""
+        ``t (B, 1, 1, 1)``; returns the ``(B, H, W, 3)`` fp32 frame at t."""
         feats, mean = self.encode(x0, x1)
         return self.decode(feats, mean, t)

@@ -5,6 +5,11 @@ the input is handed to cuDNN as a channels-last NCHW view of the same
 memory, so no layout copy is made. Module and parameter names are those of
 the flax modules, so checkpoints map across mechanically
 (``interop/flax_params.py``).
+
+Every layer computes in the dtype of its parameters and input (fp32, or
+bf16 after ``create_model`` cast the parameters). As in flax's ``Conv``,
+``ConvTranspose`` and ``Dense``, the bias is added after the product has
+been rounded to that dtype, so a bf16 layer rounds where the JAX layer does.
 """
 
 from __future__ import annotations
@@ -19,15 +24,28 @@ from torch import nn
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` on ``(B, H, W, C)`` tensors."""
 
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution without its bias, in the compute dtype."""
+        return self._conv_forward(x.permute(0, 3, 1, 2), self.weight, None).permute(0, 2, 3, 1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return self.product(x) + self.bias
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` on ``(B, H, W, C)`` tensors."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, None, self.stride,
+                               self.padding, self.output_padding, self.groups, self.dilation)
+        return y.permute(0, 2, 3, 1) + self.bias
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` over the last axis, bias added after the product."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight) + self.bias
 
 
 class PReLU(nn.Module):
@@ -122,13 +140,22 @@ class HalfChannelConv5ResBlock(nn.Module):
         return out
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU as ``jax.nn.gelu(x, approximate=False)`` computes it:
+    ``0.5 * x * erfc(-x * sqrt(0.5))``, with ``sqrt(0.5)`` rounded to ``x``'s
+    dtype, erfc taken in fp32, and its value and the result rounded to
+    ``x``'s dtype."""
+    sqrt_half = torch.tensor(0.5 ** 0.5, dtype=x.dtype).item()
+    return (0.5 * x) * torch.erfc(-x.float() * sqrt_half).to(x.dtype)
+
+
 class FeedForward(nn.Module):
-    """Per-pixel MLP: Linear, exact (erf) GELU, Linear."""
+    """Per-pixel MLP: Dense, exact (erf) GELU, Dense."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, out_features)
+        self.fc1 = Dense(in_features, hidden_features)
+        self.fc2 = Dense(hidden_features, out_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        return self.fc2(gelu(self.fc1(x)))

@@ -33,13 +33,19 @@ class DeformableConv2d(nn.Module):
     def forward(self, x: torch.Tensor, movement_feat: torch.Tensor):
         B, H, W, _ = x.shape
         G, KK = self.groups, self.kernel_size * self.kernel_size
-        offset_flow = self.offset_flow_conv(movement_feat)
-        feat_t_from_x = bwarp(x, offset_flow)
+        # Where the JAX layer casts the result of a bias or offset add to
+        # fp32 (bwarp's flow, deform_conv2d's offsets), XLA takes that add in
+        # fp32 without rounding it to the compute dtype first; so does this.
+        flow = self.offset_flow_conv.product(movement_feat)
+        bias = self.offset_flow_conv.bias
+        offset_flow = flow + bias
+        feat_t_from_x = bwarp(x, flow.float() + bias.float())
         h = torch.cat([feat_t_from_x, movement_feat, offset_flow], dim=-1)
         om = self.om_out(self.om2(self.om1(h))).reshape(B, H, W, G, 3, KK)
         res_offset = 2.0 * torch.tanh(torch.stack([om[..., 0, :], om[..., 1, :]], dim=-1))
-        offset = res_offset + offset_flow[:, :, :, None, None, :]
-        mask = torch.sigmoid(om[..., 2, :])
+        offset = res_offset.float() + offset_flow.float()[:, :, :, None, None, :]
+        # jax.nn.sigmoid's steps, each rounded to the compute dtype.
+        mask = 1.0 / (1.0 + torch.exp(-om[..., 2, :]))
         out = deform_conv2d(x, offset, mask, self.weight, self.bias,
                             kernel_size=self.kernel_size, padding=self.padding)
         return out, offset_flow

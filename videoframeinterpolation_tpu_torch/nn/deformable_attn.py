@@ -18,7 +18,8 @@ from torch import nn
 
 from ..kernels.window_sample import _grouped_deformable_sample, deformable_sample
 from ..ops import bwarp, scale_resize
-from .blocks import ConvPReLU, FeedForward, HalfChannelConv5ResBlock, conv, conv_transpose_x2
+from .blocks import (ConvPReLU, Dense, FeedForward, HalfChannelConv5ResBlock, conv,
+                     conv_transpose_x2)
 
 __all__ = ["SampleAttention", "CrossDeformableAttentionBlock", "_grouped_deformable_sample"]
 
@@ -27,16 +28,19 @@ class SampleAttention(nn.Module):
     """Per-pixel attention over S sampled key/values.
 
     Query ``(B, H, W, C)``; key/value ``(B, S, H*W, C)``. Head width
-    ``hc = out_features / n_heads``, scale ``hc ** -0.5``, softmax over S in
-    fp32.
+    ``hc = out_features / n_heads``, scale ``hc ** -0.5``. As in JAX, both
+    contractions take their operands in the compute dtype and sum in fp32
+    (products of bf16 values are exact in fp32), the softmax over S runs in
+    fp32, and the attention weights and the output are rounded to the
+    compute dtype.
     """
 
     def __init__(self, features: int, out_features: int, n_samples: int, n_heads: int):
         super().__init__()
         self.out_features, self.n_samples, self.n_heads = out_features, n_samples, n_heads
-        self.q_proj = nn.Linear(features, out_features)
-        self.k_proj = nn.Linear(features, out_features)
-        self.v_proj = nn.Linear(features, out_features)
+        self.q_proj = Dense(features, out_features)
+        self.k_proj = Dense(features, out_features)
+        self.v_proj = Dense(features, out_features)
 
     def forward(self, q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
         B, H, W, _ = q.shape
@@ -45,9 +49,9 @@ class SampleAttention(nn.Module):
         qp = self.q_proj(q).reshape(B, H * W, nh, hc)
         kp = self.k_proj(kv).reshape(B, self.n_samples, H * W, nh, hc)
         vp = self.v_proj(kv).reshape(B, self.n_samples, H * W, nh, hc)
-        attn = torch.einsum("bnhc,bsnhc->bnhs", qp, kp).float() * hc ** -0.5
+        attn = torch.einsum("bnhc,bsnhc->bnhs", qp.float(), kp.float()) * hc ** -0.5
         attn = torch.softmax(attn, dim=-1).to(vp.dtype)
-        out = torch.einsum("bnhs,bsnhc->bnhc", attn, vp)
+        out = torch.einsum("bnhs,bsnhc->bnhc", attn.float(), vp.float())
         return out.reshape(B, H, W, self.out_features).to(q.dtype)
 
 

@@ -2,7 +2,8 @@
 
 Plain PyTorch in this slice, as the JAX package left it to XLA: zeros-padded
 bilinear samples through :func:`.interp.grid_sample`, modulated by the mask,
-then one grouped contraction with the ``(G, K*K, Cin/G, Cout/G)`` weight.
+then one grouped contraction with the ``(G, K*K, Cin/G, Cout/G)`` weight,
+summed in fp32 and rounded once to ``x``'s dtype before the bias is added.
 On the main path it runs only at 1/16 resolution, in the query builder.
 """
 
@@ -47,8 +48,8 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     samples = samples.reshape(B, G, H * W, KK, Cg)
     m = mask.permute(0, 3, 1, 2, 4).reshape(B, G, H * W, KK, 1).to(x.dtype)
     samples = samples * m
-    out = torch.einsum("bgnkc,gkcd->bngd", samples, weight.to(x.dtype))
-    out = out.reshape(B, H, W, G * CoutG)
+    out = torch.einsum("bgnkc,gkcd->bngd", samples.float(), weight.to(x.dtype).float())
+    out = out.reshape(B, H, W, G * CoutG).to(x.dtype)
     if bias is not None:
         out = out + bias.to(x.dtype)
     return out

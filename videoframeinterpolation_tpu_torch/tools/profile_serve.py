@@ -2,8 +2,8 @@
 
     python -m videoframeinterpolation_tpu_torch.tools.profile_serve [--out chiprun_out/profile_serve.json]
 
-Serves the shipped DAT_fast student through ``load_model``, with the
-package's own settings (fp32, TF32 off, cuDNN's default algorithm choice),
+Serves the shipped DAT_fast student through ``load_model``, as the CLI
+serves it (the config's bf16, TF32 off, cuDNN's default algorithm choice),
 at B=1, 448x256. Traces ``--requests`` requests after warm-up, and prints
 the device kernels by total time, the deformable sampler's share, and the
 device's busy share of the traced wall time. Needs a CUDA device.
