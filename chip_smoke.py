@@ -8,12 +8,20 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
   0. device: exit non-zero when there is no CUDA device; print the card's
      name and power limit as ``nvidia-smi`` reports them;
   1. build: compile ``videoframeinterpolation_tpu_torch/kernels/csrc/*.cu``
-     with one ``nvcc`` call and load it with ctypes;
+     with one ``nvcc`` call and load it with ctypes; print each kernel's
+     registers and spills as ``ptxas -v`` reports them;
   2. kernel: every kernel against its plain PyTorch version on the card:
      the deformable sampler at the three DAT level shapes of a 448x256
-     request and at edge cases (max |diff| <= 1e-5 in fp32), and in bf16 at
-     the three level shapes (within 1 bf16 ulp of the fp32 sampling of its
-     bf16 inputs, rounded once); the row and lane gathers at every shape of
+     request for the shared-offset student (G 1) and for the non-shared
+     checkpoint (G 4/8/8, S 8/16/32), and at edge cases (far, integer,
+     edge and negative positions, narrow groups, an odd group width, feat
+     misaligned by a storage offset), in fp32 (max |diff| 0.0) and in bf16
+     (0 ulps from the fp32 sampling of its bf16 inputs, rounded once); at
+     each case the vector width and index width the wrapper picks, and
+     every narrower width and the 64-bit index, so that every instance of
+     the kernel runs; and a 1080p non-shared level whose output has more
+     than 2^31 elements (64-bit indices), checked at its first and last
+     (frame, sample) slices; the row and lane gathers at every shape of
      their probes and at an odd shape (equal, max |diff| 0);
   3. serve: the shipped DAT_fast student at full width, in the bf16 of its
      YAML, answers four 448x256 requests and one 270x480 request through
@@ -23,7 +31,8 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      [0, 1] frame; in bf16, mean |diff| at most half the CPU's own gap
      between its bf16 and fp32 frames, the limit the CPU parity test with
      JAX sets;
-  5. times: ms/frame at 448x256 in bf16 and in fp32 and, per DAT level, the
+  5. times: ms/frame at 448x256 in bf16 and in fp32 and, per DAT level
+     (shared and non-shared, ``tools/perf/sampler_probe.py``), the
      sampler's time beside its bound, its plain version's time and
      F.grid_sample's time;
   6. gather: the two gather probes
@@ -57,14 +66,14 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 _T0 = time.perf_counter()
 
-FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
-KERNEL_TOL = 1e-5
+SAMPLER_TOL = 0.0   # the sampler repeats the plain version's fp32 arithmetic step for step
 E2E_TOL = 1e-3
 BF16_GAP_SHARE = 0.5   # card vs CPU in bf16: at most this share of bf16's own gap
 H, W = 256, 448
-# (name, H, W, S, offset_scale) of the three DAT levels at 448x256, G = 1.
-LEVELS = (("lv3", 32, 56, 8, 2.0), ("lv2", 64, 112, 8, 4.0), ("lv1", 128, 224, 2, 8.0))
 ODD_TABLE = ((999, 77, torch.bfloat16),)   # (M, N, dtype) beside the probes' shapes
+# The non-shared lv1 of a 1920x1080 request (padded to 1088x1920): its
+# 2.4e9 output elements need 64-bit indices.
+WIDE = (2, 544, 960, 72, 8, 32, 8.0)
 
 
 def emit(obj) -> None:
@@ -86,15 +95,12 @@ class Phase:
         return False
 
 
-def level_inputs(gen, B2, h, w, C, G, S, scale, flow_mag=4.0):
-    feat = torch.randn((B2, h, w, C), generator=gen, device="cuda")
-    flow = torch.randn((B2, h, w, 2), generator=gen, device="cuda") * flow_mag
-    res = scale * torch.tanh(torch.randn((B2, h, w, G, S, 2), generator=gen, device="cuda"))
-    return feat, flow, res
-
-
-def edge_cases(gen):
-    """Inputs whose sample positions hit the sampler's edge conditions."""
+def sampler_cases(gen, level_inputs, level_sets):
+    """name -> (feat, flow, residual, storage offset of feat in elements), fp32
+    on the card: the level shapes, then inputs whose sample positions or
+    widths hit the sampler's edge conditions."""
+    cases = {f"{kind}_{name}": (*level_inputs(gen, 2, h, w, 72, G, S, sc), 0)
+             for kind, levels in level_sets.items() for name, h, w, G, S, sc in levels}
     B2, h, w, C, S = 2, 32, 56, 72, 8
     feat, flow, res = level_inputs(gen, B2, h, w, C, 1, S, 2.0)
     gy, gx = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float32),
@@ -106,15 +112,30 @@ def edge_cases(gen):
     integer = torch.round(torch.randn((B2, h, w, 2), generator=gen, device="cuda") * 3)
     last = torch.tensor([w - 1.0, h - 1.0], device="cuda") - base
     neg = -base - 1.5
-    cases = {
-        "far_outside": (feat, far.contiguous(), res),
-        "on_integers": (feat, integer.contiguous(), torch.round(res)),
+    cases.update({
+        "far_outside": (feat, far.contiguous(), res, 0),
+        "on_integers": (feat, integer.contiguous(), torch.round(res), 0),
         "last_row_col": (feat, last.expand(B2, h, w, 2).contiguous(),
-                         torch.where(frac < 0.25, 0.0, frac - 0.5)),
-        "negative": (feat, neg.expand(B2, h, w, 2).contiguous(), frac * 2.0),
-        "groups4_cg18": level_inputs(gen, B2, h, w, C, 4, S, 2.0),
-    }
+                         torch.where(frac < 0.25, 0.0, frac - 0.5), 0),
+        "negative": (feat, neg.expand(B2, h, w, 2).contiguous(), frac * 2.0, 0),
+        "groups4_cg18": (*level_inputs(gen, B2, h, w, C, 4, S, 2.0), 0),
+        "groups8_cg9": (*level_inputs(gen, 1, 9, 13, 72, 8, 3, 30.0), 0),
+        "odd_c40_g8": (*level_inputs(gen, 1, 9, 13, 40, 8, 3, 30.0), 0),
+        "c40_g1": (*level_inputs(gen, 1, 9, 13, 40, 1, 3, 30.0), 0),
+        "odd_cg7": (*level_inputs(gen, 2, 11, 17, 21, 3, 5, 3.0), 0),
+    })
+    for offset in (1, 2, 4):
+        cases[f"misaligned_by_{offset}"] = (feat, flow, res, offset)
     return cases
+
+
+def at_offset(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts ``offset`` elements into a
+    larger buffer, so that its data pointer is aligned to that offset only."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
 def main() -> int:
@@ -137,8 +158,9 @@ def main() -> int:
     from videoframeinterpolation_tpu_torch.kernels import (
         build, lane_gather, lane_gather_plain, row_gather, row_gather_plain)
     from videoframeinterpolation_tpu_torch.kernels.window_sample import (
-        _grouped_deformable_sample, deformable_sample, deformable_sample_plain)
-    from videoframeinterpolation_tpu_torch.tools.perf import gather_probe, lane_gather_probe, timing
+        _grouped_deformable_sample, _index_bits, _launch, _vector_bytes, deformable_sample)
+    from videoframeinterpolation_tpu_torch.tools.perf import (
+        gather_probe, lane_gather_probe, sampler_probe, timing)
 
     with Phase("build"):
         nvcc = build.find_nvcc()
@@ -147,38 +169,88 @@ def main() -> int:
         build.load_library()
         emit({"build_seconds": round(time.perf_counter() - t, 3), "nvcc": nvcc,
               "sources": [str(p.relative_to(ROOT)) for p in build.sources()]})
+        for row in build.ptxas_report():
+            emit({"ptxas": row})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = {}
     with Phase("kernel"):
-        cases = {name: level_inputs(gen, 2, h, w, 72, 1, S, sc)
-                 for name, h, w, S, sc in LEVELS}
-        cases.update(edge_cases(gen))
-        for name, (feat, flow, res) in cases.items():
-            out = deformable_sample(feat, flow, res, res.shape[3])
-            torch.cuda.synchronize()
-            ref = deformable_sample_plain(feat, flow, res, res.shape[3])
-            err = (out - ref).abs().max().item()
-            emit({"case": name, "shape": list(res.shape), "max_abs_err": err})
-            if not err <= KERNEL_TOL:
-                raise AssertionError(f"kernel vs plain, case {name}: {err} > {KERNEL_TOL}")
-            max_err["deformable_sample"] = max(max_err.get("deformable_sample", 0.0), err)
-        # bf16: the kernel takes res + flow in fp32 (as the plain version
-        # does), samples in fp32 and rounds once, so it is held against the
-        # fp32 sampling of the same bf16 inputs, rounded once: within one
-        # bf16 ulp.
-        for name, h, w, S, sc in LEVELS:
-            feat, flow, res = (x.bfloat16() for x in cases[name])
-            out = deformable_sample(feat, flow, res, 1).float()
-            torch.cuda.synchronize()
+        # The sampler in fp32 must equal its plain version; in bf16 it takes
+        # res + flow in fp32 (as the plain version does), samples in fp32
+        # and rounds once, so it must equal the fp32 sampling of the same
+        # bf16 inputs, rounded once (0 bf16 ulps). For fp32 inputs this
+        # reference is the plain version itself.
+        def sampler_ref(feat, flow, res):
             ref = _grouped_deformable_sample(
-                feat.float(), res.float() + flow.float()[:, :, :, None, None, :],
-                1).bfloat16().float()
-            ulps = bf16_ulps(out, ref)
-            emit({"case": f"{name}_bf16", "max_abs_err": (out - ref).abs().max().item(),
-                  "max_err_in_ulps": ulps})
-            if not ulps <= 1.0:
-                raise AssertionError(f"bf16 kernel vs reference, {name}: {ulps} ulps > 1")
+                feat.float(), res.float() + flow.float()[:, :, :, None, None, :], res.shape[3])
+            return ref.to(feat.dtype).float()
+
+        reached = set()
+        cases = sampler_cases(gen, sampler_probe.level_inputs, sampler_probe.LEVEL_SETS)
+        for name, (feat32, flow32, res32, offset) in cases.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                feat = at_offset(feat32.to(dtype), offset)
+                flow, res = flow32.to(dtype), res32.to(dtype)
+                B2, h, w, C = feat.shape
+                G, S = res.shape[3], res.shape[4]
+                ref = sampler_ref(feat, flow, res)
+                out = deformable_sample(feat, flow, res, G)
+                torch.cuda.synchronize()
+                plan = (_vector_bytes(C, G, feat.element_size(), feat.data_ptr(),
+                                      out.data_ptr()), _index_bits(B2, h, w, C, G, S))
+                # Every narrower width and the 64-bit index on the same inputs.
+                checked = {plan: out}
+                width = plan[0]
+                while width >= feat.element_size():
+                    for bits in (32, 64):
+                        if (width, bits) not in checked:
+                            checked[width, bits] = _launch(feat, flow, res, G, width, bits)
+                    width //= 2
+                torch.cuda.synchronize()
+                for (width, bits), got in checked.items():
+                    err = (got.float() - ref).abs().max().item()
+                    reached.add((str(dtype), width, bits))
+                    if not err <= SAMPLER_TOL:
+                        raise AssertionError(f"sampler vs reference, case {name} {dtype} "
+                                             f"V={width} {bits}-bit: {err} > {SAMPLER_TOL}")
+                err = (out.float() - ref).abs().max().item()
+                max_err["deformable_sample"] = max(max_err.get("deformable_sample", 0.0), err)
+                emit({"case": name, "dtype": str(dtype), "shape": list(res.shape),
+                      "feat_offset_bytes": feat.data_ptr() % 16, "vector_bytes": plan[0],
+                      "index_bits": plan[1], "instances": sorted(checked), "max_abs_err": err,
+                      **({"max_err_in_ulps": bf16_ulps(out.float(), ref)}
+                         if dtype == torch.bfloat16 else {})})
+            del feat, flow, res, ref, out, checked
+        # 64-bit indices, as the wrapper picks them: the first and last
+        # (frame, sample) slices against the reference on those slices.
+        B2, h, w, C, G, S, sc = WIDE
+        wide = sampler_probe.level_inputs(gen, B2, h, w, C, G, S, sc)
+        for dtype in (torch.bfloat16, torch.float32):
+            feat, flow, res = (x.to(dtype) for x in wide)
+            out = deformable_sample(feat, flow, res, G)
+            torch.cuda.synchronize()
+            bits = _index_bits(B2, h, w, C, G, S)
+            finite = bool(torch.isfinite(out).all())
+            errs = []
+            for b, s_ in ((0, 0), (B2 - 1, S - 1)):
+                ref = sampler_ref(feat[b:b + 1], flow[b:b + 1], res[b:b + 1, :, :, :, s_:s_ + 1])
+                errs.append((out[b:b + 1, s_:s_ + 1].float() - ref).abs().max().item())
+            reached.add((str(dtype), "wide", bits))
+            emit({"case": "wide_index_1080p_non_shared_lv1", "dtype": str(dtype),
+                  "shape": list(res.shape), "out_elements": out.numel(), "index_bits": bits,
+                  "finite": finite, "max_abs_err_first_last_slices": errs})
+            if bits != 64 or not finite or max(errs) > SAMPLER_TOL:
+                raise AssertionError(f"wide sampler case {dtype}: {bits}-bit, finite {finite}, "
+                                     f"errors {errs}")
+            del feat, flow, res, out
+        del wide
+        need = ({("torch.float32", v, b) for v in (16, 8, 4) for b in (32, 64)}
+                | {("torch.bfloat16", v, b) for v in (16, 8, 4, 2) for b in (32, 64)}
+                | {("torch.float32", "wide", 64), ("torch.bfloat16", "wide", 64)})
+        if need - reached:
+            raise AssertionError(f"sampler instances never run: {sorted(need - reached, key=str)}")
+        emit({"sampler_paths_checked": len(need), "max_abs_err": max_err["deformable_sample"]})
+        torch.cuda.empty_cache()
         for kernel, plain, axis, shapes in (
                 (row_gather, row_gather_plain, 0, gather_probe.SHAPES + ODD_TABLE),
                 (lane_gather, lane_gather_plain, 1, lane_gather_probe.SHAPES + ODD_TABLE)):
@@ -271,7 +343,6 @@ def main() -> int:
             raise AssertionError(f"card vs CPU, bf16: mean {bf16_err} > {BF16_GAP_SHARE} x "
                                  f"{bf16_gap}")
 
-    per_level = {"bfloat16": {}, "float32": {}}
     # The CPU threads of phase 4 would compete with the thread that issues
     # the card's work.
     torch.set_num_threads(1)
@@ -281,14 +352,19 @@ def main() -> int:
             for name, m in (("bf16", model), ("fp32", model32)):
                 frame_ms = timing.loop_ms(lambda: m(*xs), 20, warmup=5) / 20
                 emit({f"ms_per_frame_448x256_{name}": frame_ms, "card": card})
-        for name, h, w, S, sc in LEVELS:
-            for dtype in (torch.bfloat16, torch.float32):
-                feat, flow, res = (x.to(dtype) for x in level_inputs(gen, 2, h, w, 72, 1, S, sc))
-                per_level[str(dtype).removeprefix("torch.")][name] = level_times(
-                    feat, flow, res, deformable_sample, deformable_sample_plain)
-                emit({"level": name, "dtype": str(dtype),
-                      **per_level[str(dtype).removeprefix("torch.")][name],
-                      "card": card})
+        per_level = sampler_probe.main()
+        # The main path's levels: the shared-offset student in bf16.
+        shared = list(per_level["shared"]["bfloat16"].values())
+        emit({"sampler_speed": {
+            "shared_bf16_kernel_over_library": (sum(r["ms"] for r in shared)
+                                                / sum(r["library_ms"] for r in shared)),
+            "shared_bf16_share_of_bound": (sum(r["bound_ms"] for r in shared)
+                                           / sum(r["ms"] for r in shared)),
+            "faster_than_library": {f"{kind}_{dtype}_{name}": r["ms"] < r["library_ms"]
+                                    for kind, by_dtype in per_level.items()
+                                    for dtype, rows in by_dtype.items()
+                                    for name, r in rows.items()},
+            "card": card}})
 
     probes = {}
     with Phase("gather"):
@@ -306,7 +382,6 @@ def main() -> int:
     def total(rows, key):
         return sum(r[key] for r in rows)
 
-    levels = list(per_level["bfloat16"].values())
     kernels = [{
         "name": "deformable_sample",
         "route": "cuda",
@@ -314,12 +389,12 @@ def main() -> int:
         "replaces": "videoframeinterpolation_tpu/kernels/window_sample.py:158",
         "launches": main_path_launches,
         "max_abs_err": max_err["deformable_sample"],
-        "ms": total(levels, "ms"),
-        "plain_ms": total(levels, "plain_ms"),
-        "bound_ms": total(levels, "bound_ms"),
-        "bound_by": ("bytes" if total(levels, "bytes_ms") >= total(levels, "ops_ms")
+        "ms": total(shared, "ms"),
+        "plain_ms": total(shared, "plain_ms"),
+        "bound_ms": total(shared, "bound_ms"),
+        "bound_by": ("bytes" if total(shared, "bytes_ms") >= total(shared, "ops_ms")
                      else "operations"),
-        "library_ms": total(levels, "library_ms"),
+        "library_ms": total(shared, "library_ms"),
         "dtype": "bfloat16",
         "per_level": per_level,
         "card": card,
@@ -355,46 +430,6 @@ def bf16_ulps(out: torch.Tensor, ref: torch.Tensor) -> float:
     _, exp = torch.frexp(mag)   # mag = m * 2**exp with m in [0.5, 1)
     ulp = torch.ldexp(torch.ones_like(mag), exp - 8).clamp_min(2.0 ** -133)
     return ((out - ref).abs() / ulp).max().item()
-
-
-def level_times(feat, flow, res, kernel, plain) -> dict:
-    """One DAT level's sampler: kernel, plain version, bound and
-    ``F.grid_sample`` on the same work (its inputs arranged beforehand).
-    The kernel's and F.grid_sample's times are on the device's clock (calls
-    captured in a CUDA graph); ``host_ms`` is the kernel issued from Python."""
-    from videoframeinterpolation_tpu_torch.tools.perf.timing import (
-        bytes_bound_ms, device_marginal_ms, loop_ms)
-    B2, h, w, C = feat.shape
-    G, S = res.shape[3], res.shape[4]
-    calls = kernel.launches
-    ms = device_marginal_ms(lambda: kernel(feat, flow, res, G), n_hi=17)
-    host_ms = loop_ms(lambda: kernel(feat, flow, res, G), 50) / 50
-    kernel.launches = calls   # timing launches are not main-path launches
-    plain_ms = loop_ms(lambda: plain(feat, flow, res, G), 10) / 10
-
-    # Library yardstick: NCHW input and a normalized (align_corners) grid.
-    gy, gx = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float32),
-                            torch.arange(w, device="cuda", dtype=torch.float32),
-                            indexing="ij")
-    coords = torch.stack([gx, gy], -1)[None, :, :, None, None] + (res + flow[:, :, :, None, None])
-    coords = coords.permute(0, 3, 4, 1, 2, 5).reshape(B2 * G, S * h, w, 2)
-    grid = torch.stack([coords[..., 0] * (2.0 / (w - 1)) - 1.0,
-                        coords[..., 1] * (2.0 / (h - 1)) - 1.0], -1).to(feat.dtype).contiguous()
-    inp = feat.reshape(B2, h, w, G, C // G).permute(0, 3, 4, 1, 2).reshape(
-        B2 * G, C // G, h, w).contiguous()
-    library_ms = device_marginal_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
-                                                          padding_mode="zeros",
-                                                          align_corners=True), n_hi=17)
-
-    esize = feat.element_size()
-    nbytes = esize * (B2 * S * h * w * C + feat.numel() + flow.numel() + res.numel())
-    flops = 7 * B2 * S * h * w * C   # 4 multiplies and 3 adds per output element
-    bytes_ms = bytes_bound_ms(nbytes)
-    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
-    return {"shape": [B2, h, w, C, G, S], "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bytes": nbytes,
-            "share_of_bound": max(bytes_ms, ops_ms) / ms}
 
 
 def smooth_texture(rng, h: int, w: int) -> np.ndarray:

@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 ``chip_smoke.py`` holds the kernels against their plain versions at the
-shapes of the serving path and of the gather probes; these tests add what
-it does not cover: odd sizes (the sampler with many groups and large
-residuals, the gathers at a table height that is no multiple of 32), and
-one counted launch per call.
+shapes of the serving path and of the gather probes; these tests hold the
+sampler at the DAT level shapes of both checkpoints, at narrow and odd
+group widths, at a storage offset, at every vector width and both index
+widths, and add odd sizes for the gathers (a table height that is no
+multiple of 32), and one counted launch per call.
 
 These tests need an NVIDIA card with nvcc (the kernels have no CPU mode) and
 skip without one. On the card's machine, which has no JAX, run them without
@@ -17,12 +18,31 @@ import pytest
 import torch
 
 from videoframeinterpolation_tpu_torch.kernels import (
-    deformable_sample, deformable_sample_plain, lane_gather, lane_gather_plain, row_gather,
-    row_gather_plain)
+    deformable_sample, lane_gather, lane_gather_plain, row_gather, row_gather_plain)
+from videoframeinterpolation_tpu_torch.kernels.window_sample import (
+    _grouped_deformable_sample, _index_bits, _launch, _vector_bytes)
 
 pytestmark = pytest.mark.cuda
 
-TOL = 1e-5   # same taps in the same order, products and sums without FMA
+# (B2, H, W, C, G, S, residual scale, storage offset of feat in elements):
+# an odd shape with large residuals, the DAT levels of a 448x256 request
+# (shared offsets, then configs/DAT.yaml's non-shared ones), narrow and odd
+# group widths, and feat misaligned by a storage offset.
+SAMPLER_CASES = {
+    "odd_9x13_c40_g8": (1, 9, 13, 40, 8, 3, 30.0, 0),
+    "shared_lv3": (2, 32, 56, 72, 1, 8, 2.0, 0),
+    "shared_lv2": (2, 64, 112, 72, 1, 8, 4.0, 0),
+    "shared_lv1": (2, 128, 224, 72, 1, 2, 8.0, 0),
+    "non_shared_lv3": (2, 32, 56, 72, 4, 8, 2.0, 0),
+    "non_shared_lv2": (2, 64, 112, 72, 8, 16, 4.0, 0),
+    "non_shared_lv1": (2, 128, 224, 72, 8, 32, 8.0, 0),
+    "cg9": (1, 9, 13, 72, 8, 3, 30.0, 0),
+    "cg18": (2, 11, 17, 72, 4, 5, 3.0, 0),
+    "c40_g1": (1, 9, 13, 40, 1, 3, 30.0, 0),
+    "odd_cg7": (2, 11, 17, 21, 3, 5, 3.0, 0),
+    "misaligned_by_1": (2, 32, 56, 72, 1, 8, 2.0, 1),
+    "misaligned_by_2": (2, 32, 56, 72, 1, 8, 2.0, 2),
+}
 
 
 @pytest.fixture
@@ -39,12 +59,70 @@ def _inputs(gen, B2, H, W, C, G, S, scale, flow_mag=4.0):
     return feat, flow, res
 
 
-def test_kernel_matches_plain_version(gen):
-    feat, flow, res = _inputs(gen, 1, 9, 13, 40, 8, 3, 30.0)
-    out = deformable_sample(feat, flow, res, 8)
+def _at_offset(x, offset):
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _reference(feat, flow, res):
+    """The plain version's fp32 sampling of the inputs, rounded once to
+    their dtype: the plain version itself in fp32, and in bf16 what the
+    kernel computes (fp32 taps, one rounding)."""
+    ref = _grouped_deformable_sample(
+        feat.float(), res.float() + flow.float()[:, :, :, None, None, :], res.shape[3])
+    return ref.to(feat.dtype)
+
+
+def _case(gen, name, dtype):
+    B2, H, W, C, G, S, scale, offset = SAMPLER_CASES[name]
+    feat, flow, res = (x.to(dtype) for x in _inputs(gen, B2, H, W, C, G, S, scale))
+    return _at_offset(feat, offset), flow, res
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(SAMPLER_CASES))
+def test_kernel_matches_plain_version(gen, name, dtype):
+    feat, flow, res = _case(gen, name, dtype)
+    out = deformable_sample(feat, flow, res, res.shape[3])
     torch.cuda.synchronize()
-    ref = deformable_sample_plain(feat, flow, res, 8)
-    assert (out - ref).abs().max().item() <= TOL
+    # Equal: same taps in the same order, products and sums without FMA,
+    # one rounding in bf16.
+    assert (out.float() - _reference(feat, flow, res).float()).abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("index_bits", [32, 64])
+@pytest.mark.parametrize("dtype,vector_bytes", [
+    (torch.float32, 16), (torch.float32, 8), (torch.float32, 4),
+    (torch.bfloat16, 16), (torch.bfloat16, 8), (torch.bfloat16, 4), (torch.bfloat16, 2)])
+def test_every_vector_and_index_width_matches_plain_version(gen, dtype, vector_bytes, index_bits):
+    feat, flow, res = _case(gen, "shared_lv3", dtype)
+    out = _launch(feat, flow, res, 1, vector_bytes, index_bits)
+    torch.cuda.synchronize()
+    assert (out.float() - _reference(feat, flow, res).float()).abs().max().item() == 0.0
+
+
+def test_a_width_the_call_does_not_fit_is_refused(gen):
+    feat, flow, res = _case(gen, "misaligned_by_1", torch.float32)
+    assert _vector_bytes(72, 1, 4, feat.data_ptr()) == 4
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _launch(feat, flow, res, 1, 16, 32)
+    feat, flow, res = _case(gen, "cg9", torch.bfloat16)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _launch(feat, flow, res, 8, 4, 32)
+
+
+def test_an_output_of_2_31_elements_takes_64_bit_indices(gen):
+    """The non-shared lv1 of a 1080p request: 2.4e9 output elements (4.8 GB in bf16)."""
+    B2, H, W, C, G, S = 2, 544, 960, 72, 8, 32
+    assert _index_bits(B2, H, W, C, G, S) == 64
+    feat, flow, res = (x.bfloat16() for x in _inputs(gen, B2, H, W, C, G, S, 8.0))
+    out = deformable_sample(feat, flow, res, G)
+    torch.cuda.synchronize()
+    for b, s in ((0, 0), (B2 - 1, S - 1)):
+        ref = _reference(feat[b:b + 1], flow[b:b + 1], res[b:b + 1, :, :, :, s:s + 1])
+        assert torch.equal(out[b:b + 1, s:s + 1], ref)
 
 
 def test_each_call_is_one_counted_launch(gen):

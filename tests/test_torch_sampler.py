@@ -1,5 +1,8 @@
 """The port's deformable sampler and grid_sample against the JAX package (CPU, fp32 and bf16).
 
+Also the CUDA kernel's launch plan, which is plain Python: the vector width
+(bytes per load and store) and the index width the wrapper picks per call.
+
 The port's ``deformable_sample`` runs its plain PyTorch version on CPU
 tensors. It is held against JAX's ``_grouped_deformable_sample`` (the
 function the flagship runs) and against the Pallas
@@ -28,6 +31,7 @@ from videoframeinterpolation_tpu.nn.deformable_attn import (
 )
 from videoframeinterpolation_tpu.ops.interp import grid_sample as jax_grid_sample
 from videoframeinterpolation_tpu_torch.kernels import deformable_sample, deformable_sample_plain
+from videoframeinterpolation_tpu_torch.kernels.window_sample import _index_bits, _vector_bytes
 from videoframeinterpolation_tpu_torch.nn.deformable_attn import _grouped_deformable_sample
 from videoframeinterpolation_tpu_torch.ops import grid_sample
 
@@ -154,3 +158,69 @@ def test_deformable_sample_rejects_what_the_kernel_does_not_take():
         deformable_sample(feat.transpose(1, 2).contiguous().transpose(1, 2), flow, residual, 4)
     with pytest.raises(ValueError, match="expected"):
         deformable_sample(feat[0], flow, residual, 4)
+
+
+# (C, G, element size, data pointers of feat and out, expected bytes per load):
+# the DAT levels' widths, then group widths and storage offsets that force
+# a narrower vector.
+VECTOR_CASES = {
+    "shared_bf16": (72, 1, 2, (0, 0), 16),
+    "shared_fp32": (72, 1, 4, (0, 0), 16),
+    "cg18_bf16": (72, 4, 2, (0, 0), 4),      # 36 bytes a group
+    "cg18_fp32": (72, 4, 4, (0, 0), 8),      # 72 bytes
+    "cg9_bf16": (72, 8, 2, (0, 0), 2),       # 18 bytes
+    "cg9_fp32": (72, 8, 4, (0, 0), 4),
+    "c40_g1_bf16": (40, 1, 2, (0, 0), 16),
+    "odd_cg7_bf16": (21, 3, 2, (0, 0), 2),
+    "odd_cg7_fp32": (21, 3, 4, (0, 0), 4),
+    "cg1_bf16": (8, 8, 2, (0, 0), 2),
+    "feat_offset_1_bf16": (72, 1, 2, (4096 + 2, 0), 2),
+    "feat_offset_2_bf16": (72, 1, 2, (4096 + 4, 0), 4),
+    "feat_offset_4_bf16": (72, 1, 2, (4096 + 8, 0), 8),
+    "feat_offset_1_fp32": (72, 1, 4, (4096 + 4, 0), 4),
+    "feat_offset_2_fp32": (72, 1, 4, (4096 + 8, 0), 8),
+    "out_offset_fp32": (72, 1, 4, (0, 4096 + 8), 8),
+    "offset_and_narrow_group_fp32": (72, 4, 4, (4096 + 4, 0), 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VECTOR_CASES))
+def test_vector_width_divides_the_group_and_every_pointer(name):
+    C, G, esize, ptrs, expected = VECTOR_CASES[name]
+    width = _vector_bytes(C, G, esize, *ptrs)
+    assert width == expected
+    assert width >= esize and (C // G * esize) % width == 0
+    assert all(p % width == 0 for p in ptrs)
+
+
+# (B2, H, W, C, G, S, expected index bits), from shapes only: nothing is
+# allocated.
+INDEX_CASES = {
+    "dat_fast_lv1_448x256": (2, 128, 224, 72, 1, 2, 32),
+    "dat_lv1_448x256": (2, 128, 224, 72, 8, 32, 32),
+    "dat_fast_lv1_1080p": (2, 544, 960, 72, 1, 2, 32),
+    "dat_fast_lv1_4k": (2, 1088, 1920, 72, 1, 2, 32),
+    "dat_lv1_1080p": (2, 544, 960, 72, 8, 32, 64),           # 2.4e9 output elements
+    "out_just_below_2_31": (1, 1, 1, 2 ** 31 // 128 - 1, 1, 128, 32),
+    "out_at_2_31": (1, 1, 1, 2 ** 31 // 128, 1, 128, 64),
+    "residual_larger_than_out": (1, 1024, 1024, 8, 8, 128, 64),   # 2G*S*HW = 2^31
+}
+
+
+@pytest.mark.parametrize("name", sorted(INDEX_CASES))
+def test_index_width_is_64_bit_only_where_an_index_reaches_2_31(name):
+    B2, H, W, C, G, S, expected = INDEX_CASES[name]
+    largest = max(B2 * S * H * W * C, B2 * H * W * G * S * 2)
+    assert _index_bits(B2, H, W, C, G, S) == expected
+    assert (expected == 32) == (largest < 2 ** 31)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_deformable_sample_takes_a_feature_map_at_a_storage_offset(offset):
+    feat, flow, residual = (torch.from_numpy(a) for a in _case(*CASES["dat_fast_lv3"]))
+    buf = torch.zeros(feat.numel() + offset)
+    shifted = buf[offset:].view(feat.shape)
+    shifted.copy_(feat)
+    assert shifted.is_contiguous() and shifted.storage_offset() == offset
+    out = deformable_sample(shifted, flow, residual, 1)
+    np.testing.assert_array_equal(out.numpy(), deformable_sample(feat, flow, residual, 1).numpy())

@@ -4,11 +4,12 @@ Every ``kernels/csrc/*.cu`` file exposes a plain C interface (no PyTorch
 headers), so the build is a single command that takes seconds::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libvfi_torch_kernels.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas=-v -o _build/libvfi_torch_kernels.so csrc/*.cu
 
 The library goes into ``videoframeinterpolation_tpu_torch/_build/`` (listed
 in ``.gitignore``) and is rebuilt only when the hash of the sources
-changes. Nothing is built or loaded when this module is imported: the
+changes. What ``ptxas`` reports for each kernel (registers, spills) is kept
+beside it and read by :func:`ptxas_report`. Nothing is built or loaded when this module is imported: the
 first call of :func:`load_library` does it.
 """
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,14 +28,15 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 LIB_NAME = "libvfi_torch_kernels.so"
+PTXAS_LOG = LIB_NAME + ".ptxas.txt"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes; every function returns a cudaError_t as int.
 SIGNATURES = {
-    "vfi_deformable_sample_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "vfi_deformable_sample_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vfi_deformable_sample_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vfi_deformable_sample_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vfi_row_gather_f32": [_P, _P, _P, _I, _I, _I, _P],
     "vfi_row_gather_bf16": [_P, _P, _P, _I, _I, _I, _P],
     "vfi_lane_gather_f32": [_P, _P, _P, _I, _I, _I, _P],
@@ -106,8 +109,35 @@ def build(verbose: bool = True) -> Path:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib_path)
+    (BUILD_DIR / PTXAS_LOG).write_text(proc.stderr)
     stamp.write_text(digest)
     return lib_path
+
+
+def ptxas_report() -> list[dict]:
+    """Registers and spill bytes of every kernel of the last build, from
+    ``ptxas -v``, with the names demangled by ``cu++filt`` where the
+    toolkit has it."""
+    log = BUILD_DIR / PTXAS_LOG
+    if not log.is_file():
+        return []
+    rows, current = [], None
+    for line in log.read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            current = {"function": m.group(1)}
+            rows.append(current)
+        elif current is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif current is not None and (m := re.search(r"Used (\d+) registers", line)):
+            current["registers"] = int(m.group(1))
+    filt = Path(find_nvcc()).with_name("cu++filt")
+    if rows and filt.is_file():
+        names = subprocess.run([str(filt)], input="\n".join(r["function"] for r in rows),
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+        for row, name in zip(rows, names):
+            row["function"] = name
+    return rows
 
 
 def load_library() -> ctypes.CDLL:

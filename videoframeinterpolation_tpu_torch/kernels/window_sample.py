@@ -80,6 +80,54 @@ def _check(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Tensor,
         raise ValueError("feat, flow and residual must be contiguous")
 
 
+def _vector_bytes(C: int, G: int, element_size: int, *ptrs: int) -> int:
+    """Bytes per load and store of the kernel: the widest of 16, 8, 4 and 2
+    that divides a group's ``C // G`` channels and every base pointer in
+    ``ptrs`` (feat's and out's), and never less than one element. A
+    contiguous tensor with a storage offset may be aligned to one element
+    only; it then takes the element's width."""
+    width = 16
+    while width > element_size and ((C // G * element_size) % width
+                                    or any(p % width for p in ptrs)):
+        width //= 2
+    return width
+
+
+def _index_bits(B2: int, H: int, W: int, C: int, G: int, S: int) -> int:
+    """32 when every element index of the call (out ``(B2,S,H*W,C)`` and
+    residual ``(B2,H,W,G,S,2)``, the two largest tensors) is below 2^31,
+    else 64."""
+    return 32 if B2 * H * W * S * max(C, 2 * G) < 2 ** 31 else 64
+
+
+def _launch(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Tensor, n_groups: int,
+            vector_bytes: int | None = None, index_bits: int | None = None) -> torch.Tensor:
+    """Launch ``vfi_deformable_sample_*`` on checked CUDA tensors, with the
+    vector width and index width of :func:`_vector_bytes` and
+    :func:`_index_bits` unless given; count the launch. The kernel refuses a
+    width that does not fit the call, and the refusal raises."""
+    B2, H, W, C = feat.shape
+    S = residual.shape[4]
+    out = torch.empty((B2, S, H * W, C), dtype=feat.dtype, device=feat.device)
+    if vector_bytes is None:
+        vector_bytes = _vector_bytes(C, n_groups, feat.element_size(), feat.data_ptr(),
+                                     out.data_ptr())
+    if index_bits is None:
+        index_bits = _index_bits(B2, H, W, C, n_groups, S)
+    fn = getattr(load_library(), _KERNELS[feat.dtype])
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(feat.data_ptr(), flow.data_ptr(), residual.data_ptr(), out.data_ptr(),
+                 B2, H, W, C, n_groups, S, vector_bytes, index_bits, stream)
+    if err != 0:
+        raise RuntimeError(f"{_KERNELS[feat.dtype]} failed to launch ({vector_bytes}-byte "
+                           f"vectors, {index_bits}-bit indices): cudaError {err}")
+    deformable_sample.launches += 1
+    if feat.dtype == torch.bfloat16:
+        deformable_sample.bf16_launches += 1
+    return out
+
+
 def deformable_sample(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Tensor,
                       n_groups: int) -> torch.Tensor:
     """Zeros-padded bilinear samples of ``feat`` at ``q + (residual + flow)``.
@@ -94,8 +142,10 @@ def deformable_sample(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Te
       ``(B2, S, H*W, C)``, in ``feat``'s dtype (fp32 or bf16).
 
     On a CUDA tensor this launches ``vfi_deformable_sample_*`` on the
-    current stream and adds one to ``deformable_sample.launches`` (and, for
-    bf16, to ``deformable_sample.bf16_launches``); on a CPU tensor it runs
+    current stream, with the vector width and index width chosen for this
+    call (:func:`_vector_bytes`, :func:`_index_bits`), and adds one to
+    ``deformable_sample.launches`` (and, for bf16, to
+    ``deformable_sample.bf16_launches``); on a CPU tensor it runs
     :func:`deformable_sample_plain`.
     """
     _check(feat, flow, residual, n_groups)
@@ -103,20 +153,7 @@ def deformable_sample(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Te
         return deformable_sample_plain(feat, flow, residual, n_groups)
     if feat.device.type != "cuda":
         raise ValueError(f"unsupported device {feat.device}")
-    B2, H, W, C = feat.shape
-    S = residual.shape[4]
-    out = torch.empty((B2, S, H * W, C), dtype=feat.dtype, device=feat.device)
-    fn = getattr(load_library(), _KERNELS[feat.dtype])
-    with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(feat.data_ptr(), flow.data_ptr(), residual.data_ptr(), out.data_ptr(),
-                 B2, H, W, C, n_groups, S, stream)
-    if err != 0:
-        raise RuntimeError(f"{_KERNELS[feat.dtype]} failed to launch: cudaError {err}")
-    deformable_sample.launches += 1
-    if feat.dtype == torch.bfloat16:
-        deformable_sample.bf16_launches += 1
-    return out
+    return _launch(feat, flow, residual, n_groups)
 
 
 deformable_sample.launches = 0
