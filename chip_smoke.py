@@ -22,7 +22,12 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      the kernel runs; and a 1080p non-shared level whose output has more
      than 2^31 elements (64-bit indices), checked at its first and last
      (frame, sample) slices; the row and lane gathers at every shape of
-     their probes and at an odd shape (equal, max |diff| 0);
+     their probes and at an odd shape (equal, max |diff| 0); the row
+     gather also at ``ROW_CASES`` (the largest probe shape in bf16, ragged
+     rows, x and idx one element off alignment, K = 8M, a table of 60000
+     rows) on 32- and 64-bit indices (``torch.equal``), and at an index of
+     more than 2^31 elements on 64-bit indices; it fails if any instance
+     never ran;
   3. serve: the shipped DAT_fast student at full width, in the bf16 of its
      YAML, answers four 448x256 requests and one 270x480 request through
      the serving entry point, with exactly 3 bf16 sampler launches each;
@@ -71,6 +76,23 @@ E2E_TOL = 1e-3
 BF16_GAP_SHARE = 0.5   # card vs CPU in bf16: at most this share of bf16's own gap
 H, W = 256, 448
 ODD_TABLE = ((999, 77, torch.bfloat16),)   # (M, N, dtype) beside the probes' shapes
+# Row gather cases beyond the probes' shapes, name -> (M, N, K, dtype,
+# storage offset of x and idx in elements): the largest probe shape in
+# bf16, rows of 77 elements, x and idx at an offset of one element, eight
+# index rows per table row, and a table of 60000 rows.
+ROW_CASES = {
+    "probe_28672_bf16": (28672, 128, 28677, torch.bfloat16, 0),
+    "ragged_n77_fp32": (999, 77, 1004, torch.float32, 0),
+    "ragged_n77_bf16": (999, 77, 1004, torch.bfloat16, 0),
+    "offset1_fp32": (1000, 128, 1005, torch.float32, 1),
+    "offset1_bf16": (1000, 128, 1005, torch.bfloat16, 1),
+    "k8m_fp32": (1024, 128, 8192, torch.float32, 0),
+    "k8m_bf16": (1024, 128, 8192, torch.bfloat16, 0),
+    "m60000_fp32": (60000, 128, 60005, torch.float32, 0),
+}
+# An index of K x N >= 2^31 elements (64-bit indices): 2^24 + 1 rows of a
+# 1024-row bf16 table, checked at its first and last rows.
+ROW_WIDE = (1024, 128, 2 ** 24 + 1, torch.bfloat16)
 # The non-shared lv1 of a 1920x1080 request (padded to 1088x1920): its
 # 2.4e9 output elements need 64-bit indices.
 WIDE = (2, 544, 960, 72, 8, 32, 8.0)
@@ -269,6 +291,8 @@ def main() -> int:
                 if not (err == 0.0 and torch.equal(out, plain(x, idx))):
                     raise AssertionError(f"{kernel.__name__} vs plain at {M}x{N} {dtype}: {err}")
                 max_err[kernel.__name__] = max(max_err.get(kernel.__name__, 0.0), err)
+        del x, idx, out
+        check_row_gather(gen, gather_probe.SHAPES)
 
     rng = np.random.default_rng(0)
     tex = smooth_texture(rng, 320, 512)
@@ -421,6 +445,59 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def check_row_gather(gen, probe_shapes) -> None:
+    """The row gather at the probes' shapes (K = M + 5) and ``ROW_CASES``,
+    through the wrapper and then on the same inputs at both index widths;
+    and ``ROW_WIDE`` on the wrapper's 64-bit indices. Each result must
+    equal the plain version exactly (``torch.equal``); raises if any
+    (dtype, index width) instance never ran."""
+    from videoframeinterpolation_tpu_torch.kernels import row_gather, row_gather_plain
+    from videoframeinterpolation_tpu_torch.kernels.gather import (
+        _row_gather_launch, _row_index_bits)
+
+    cases = {f"probe_{M}": (M, N, M + 5, dtype, 0) for M, N, dtype in probe_shapes}
+    cases.update(ROW_CASES)
+    reached = set()
+    for name, (M, N, K, dtype, offset) in cases.items():
+        x = at_offset(torch.randn((M, N), generator=gen, device="cuda").to(dtype), offset)
+        idx = at_offset(torch.randint(0, M, (K, N), generator=gen, device="cuda",
+                                      dtype=torch.int32), offset)
+        ref = row_gather_plain(x, idx)
+        for bits in (None, 32, 64):
+            got = row_gather(x, idx) if bits is None else _row_gather_launch(x, idx, bits)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"row gather vs plain, case {name}, index bits {bits}")
+            reached.add((str(dtype), bits or _row_index_bits(M, N, K)))
+        emit({"case": "row_gather", "name": name, "table": [M, N], "index": [K, N],
+              "dtype": str(dtype), "x_offset_bytes": x.data_ptr() % 16,
+              "index_bits": _row_index_bits(M, N, K), "max_abs_err": 0.0})
+        del x, idx, ref, got
+    torch.cuda.empty_cache()
+    M, N, K, dtype = ROW_WIDE
+    x = torch.randn((M, N), generator=gen, device="cuda").to(dtype)
+    idx = torch.randint(0, M, (K, N), generator=gen, device="cuda", dtype=torch.int32)
+    out = row_gather(x, idx)
+    torch.cuda.synchronize()
+    bits = _row_index_bits(M, N, K)
+    ends = all(torch.equal(out[rows], row_gather_plain(x, idx[rows]))
+               for rows in (slice(0, 1), slice(K - 1, K)))
+    emit({"case": "row_gather_wide_index", "table": [M, N], "index": [K, N],
+          "elements": K * N, "dtype": str(dtype), "index_bits": bits,
+          "first_last_rows_equal": ends})
+    if bits != 64 or not ends:
+        raise AssertionError(f"row gather, {K * N} index elements, {bits}-bit indices: "
+                             f"first and last rows equal: {ends}")
+    reached.add((str(dtype), "wide", 64))
+    del x, idx, out
+    torch.cuda.empty_cache()
+    need = ({(dt, b) for dt in ("torch.float32", "torch.bfloat16") for b in (32, 64)}
+            | {("torch.bfloat16", "wide", 64)})
+    if need - reached:
+        raise AssertionError(f"row gather instances never run: {sorted(need - reached, key=str)}")
+    emit({"row_gather_instances_checked": len(need)})
 
 
 def bf16_ulps(out: torch.Tensor, ref: torch.Tensor) -> float:

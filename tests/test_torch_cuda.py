@@ -5,7 +5,9 @@ shapes of the serving path and of the gather probes; these tests hold the
 sampler at the DAT level shapes of both checkpoints, at narrow and odd
 group widths, at a storage offset, at every vector width and both index
 widths, and add odd sizes for the gathers (a table height that is no
-multiple of 32), and one counted launch per call.
+multiple of 32), the row gather at both index widths (a misaligned table
+and index, more index rows than table rows) and its refusal of an index
+width the call does not fit, and one counted launch per call.
 
 These tests need an NVIDIA card with nvcc (the kernels have no CPU mode) and
 skip without one. On the card's machine, which has no JAX, run them without
@@ -19,6 +21,7 @@ import torch
 
 from videoframeinterpolation_tpu_torch.kernels import (
     deformable_sample, lane_gather, lane_gather_plain, row_gather, row_gather_plain)
+from videoframeinterpolation_tpu_torch.kernels.gather import _row_gather_launch
 from videoframeinterpolation_tpu_torch.kernels.window_sample import (
     _grouped_deformable_sample, _index_bits, _launch, _vector_bytes)
 
@@ -134,15 +137,40 @@ def test_each_call_is_one_counted_launch(gen):
     assert deformable_sample.bf16_launches == before_bf16 + 1
 
 
+# name -> (M, N, K, storage offset of x and idx, index bits or None for the
+# wrapper's own width).
+ROW_GATHER_CASES = {
+    "wrapper_1001x77": (1001, 77, 45, 0, None),
+    "wrapper_k8m": (1024, 128, 8192, 0, None),
+    "offset1": (1000, 128, 999, 1, None),
+    "bits_32": (300, 77, 301, 0, 32),
+    "bits_64": (300, 77, 301, 0, 64),
+    "offset1_64_bit": (1000, 128, 999, 1, 64),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_row_gather_matches_plain_version(gen, dtype):
-    x = torch.randn((1001, 77), generator=gen, device="cuda").to(dtype)
-    idx = torch.randint(0, 1001, (45, 77), generator=gen, device="cuda", dtype=torch.int32)
+@pytest.mark.parametrize("case", list(ROW_GATHER_CASES))
+def test_row_gather_matches_plain_version(gen, case, dtype):
+    M, N, K, offset, bits = ROW_GATHER_CASES[case]
+    x = _at_offset(torch.randn((M, N), generator=gen, device="cuda").to(dtype), offset)
+    idx = _at_offset(torch.randint(0, M, (K, N), generator=gen, device="cuda",
+                                   dtype=torch.int32), offset)
     before = row_gather.launches
-    out = row_gather(x, idx)
+    out = row_gather(x, idx) if bits is None else _row_gather_launch(x, idx, bits)
     torch.cuda.synchronize()
     assert torch.equal(out, row_gather_plain(x, idx))
     assert row_gather.launches == before + 1
+
+
+def test_a_row_gather_index_width_the_call_does_not_fit_is_refused(gen):
+    x = torch.randn((1000, 128), generator=gen, device="cuda")
+    idx = torch.randint(0, 1000, (1000, 128), generator=gen, device="cuda", dtype=torch.int32)
+    before = row_gather.launches
+    for bits in (0, 16, 48):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            _row_gather_launch(x, idx, bits)
+    assert row_gather.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,5 +1,8 @@
 """The port's row and lane gathers against the bodies of the two Pallas probes (CPU).
 
+The row gather's index width, which is plain Python, is held to its rule
+from shapes alone.
+
 On CPU tensors ``row_gather`` and ``lane_gather`` run their plain versions
 (advanced indexing). Both are held against ``jnp.take_along_axis``, the
 body of each Pallas kernel (``tools/perf/pallas_gather_probe.py:13``, axis
@@ -18,6 +21,7 @@ import torch
 
 from videoframeinterpolation_tpu_torch.kernels import (
     lane_gather, lane_gather_plain, row_gather, row_gather_plain)
+from videoframeinterpolation_tpu_torch.kernels.gather import _row_index_bits
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -102,3 +106,33 @@ def test_gathers_reject_what_the_kernels_do_not_take(gather):
         gather(x.to("meta"), idx.to("meta"))
     with pytest.raises(ValueError, match="contiguous"):
         gather(x.t().contiguous().t(), idx)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("M,N,K,offset", [
+    (999, 77, 1004, 0), (1000, 128, 1005, 1), (64, 128, 512, 0), (300, 9, 7, 3)])
+def test_row_gather_matches_take_along_axis_at_odd_shapes(M, N, K, offset, dtype):
+    """Rows of an odd width, more or fewer index rows than table rows, and
+    a table and index at a storage offset (contiguous slices of a larger
+    buffer), as the card's checks run them."""
+    rng = np.random.default_rng(M + N + K)
+    jdt, tdt = DTYPES[dtype]
+    x = np.asarray(jnp.asarray(rng.standard_normal((M, N)).astype(np.float32), jdt))
+    idx = rng.integers(0, M, (K, N)).astype(np.int32)
+    xt = torch.empty(M * N + offset, dtype=tdt)[offset:].view(M, N)
+    xt.copy_(torch.from_numpy(x.astype(np.float32)))
+    it = torch.empty(K * N + offset, dtype=torch.int32)[offset:].view(K, N)
+    it.copy_(torch.from_numpy(idx))
+    out = row_gather(xt, it)
+    ref_jax = jax.jit(lambda a, i: jnp.take_along_axis(a, i, axis=0))(x, idx)
+    assert out.dtype == tdt and out.shape == (K, N)
+    np.testing.assert_array_equal(_np(out), np.asarray(ref_jax, np.float32))
+
+
+@pytest.mark.parametrize("M,N,K,bits", [
+    (1024, 128, 1024, 32), (28672, 128, 28672, 32), (1024, 128, 2 ** 24 - 1, 32),
+    (1024, 128, 2 ** 24, 64), (2 ** 24 - 1, 128, 10, 32), (2 ** 24, 128, 10, 64),
+    (1, 2 ** 31 - 1, 1, 32), (1, 2 ** 31, 1, 64), (3, 715827883, 1, 64),
+    (1024, 128, 2 ** 24 + 1, 64)])
+def test_row_gather_index_width_is_64_bit_only_from_2_31(M, N, K, bits):
+    assert _row_index_bits(M, N, K) == bits

@@ -37,8 +37,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "vfi_deformable_sample_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vfi_deformable_sample_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "vfi_row_gather_f32": [_P, _P, _P, _I, _I, _I, _P],
-    "vfi_row_gather_bf16": [_P, _P, _P, _I, _I, _I, _P],
+    "vfi_row_gather_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "vfi_row_gather_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
     "vfi_lane_gather_f32": [_P, _P, _P, _I, _I, _I, _P],
     "vfi_lane_gather_bf16": [_P, _P, _P, _I, _I, _I, _P],
 }

@@ -15,9 +15,13 @@ as both probes draw them: the kernels do not check them, and a check on
 the device would cost a synchronisation. The plain versions, advanced
 indexing, raise on an index out of range.
 
+The row gather does its index math in 32 bits unless an index of the
+call reaches 2^31 (:func:`_row_index_bits`).
+
 Each wrapper launches its kernel on a CUDA tensor, on the current stream,
 and adds one to its ``launches``; on a CPU tensor it runs the plain
-version. It never falls back from one to the other.
+version. It never falls back from one to the other: a launch the kernel
+refuses raises.
 """
 
 from __future__ import annotations
@@ -62,7 +66,9 @@ def _check(x: torch.Tensor, idx: torch.Tensor, axis: int) -> None:
         raise ValueError("table and indices must be contiguous")
 
 
-def _launch(name: str, x: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
+def _launch(name: str, x: torch.Tensor, idx: torch.Tensor, K: int, *args: int) -> torch.Tensor:
+    """``name(x, idx, out, M, N, K, *args, stream)`` on the current stream;
+    raises if the kernel refuses the call."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
@@ -70,9 +76,29 @@ def _launch(name: str, x: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tens
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(load_library(), name)(x.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                            M, N, K, stream)
+                                            M, N, K, *args, stream)
     if err != 0:
-        raise RuntimeError(f"{name} failed to launch: cudaError {err}")
+        raise RuntimeError(f"{name}{tuple(args)} failed to launch: cudaError {err}")
+    return out
+
+
+def _row_index_bits(M: int, N: int, K: int) -> int:
+    """32 when every element index of ``x (M, N)`` and ``idx (K, N)`` is
+    below 2^31, else 64."""
+    return 32 if max(K, M) * N < 2 ** 31 else 64
+
+
+def _row_gather_launch(x: torch.Tensor, idx: torch.Tensor, index_bits: int | None = None
+                       ) -> torch.Tensor:
+    """Launch ``vfi_row_gather_*`` on checked tensors with the index width
+    of :func:`_row_index_bits` unless given, and count the launch. The
+    kernel refuses a width that the call does not fit, and the refusal
+    raises."""
+    (M, N), K = x.shape, idx.shape[0]
+    if index_bits is None:
+        index_bits = _row_index_bits(M, N, K)
+    out = _launch(_ROW[x.dtype], x, idx, K, index_bits)
+    row_gather.launches += 1
     return out
 
 
@@ -82,9 +108,7 @@ def row_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check(x, idx, axis=0)
     if x.device.type == "cpu":
         return row_gather_plain(x, idx)
-    out = _launch(_ROW[x.dtype], x, idx, K=idx.shape[0])
-    row_gather.launches += 1
-    return out
+    return _row_gather_launch(x, idx)
 
 
 def lane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

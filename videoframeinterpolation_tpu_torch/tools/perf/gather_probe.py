@@ -9,7 +9,8 @@ that the result equals :func:`..kernels.row_gather_plain` exactly, and times
 the kernel at the margin, ``(t(17) - t(1)) / 16`` as the JAX probe does:
 on the device's clock (the calls captured in a CUDA graph, as the JAX probe
 loops inside one compiled program) and, as ``host``, issued one by one from
-Python, wrapper included. It prints us/call and Mrow/s, the bytes bound
+Python, wrapper included. It prints the index width the wrapper took
+(:func:`..kernels.gather._row_index_bits`), us/call and Mrow/s, the bytes bound
 (each input read once and the output written once, over 3.35 TB/s), and
 the time of the plain version (issued from Python) and of ``torch.gather``
 (device clock) on the same work, with its int64 index built before the
@@ -25,6 +26,7 @@ from typing import Callable
 import torch
 
 from ...kernels import row_gather, row_gather_plain
+from ...kernels.gather import _row_index_bits
 from .timing import bytes_bound_ms, device_marginal_ms, marginal_ms, require_card
 
 SHAPES = ((1024, 128, torch.float32), (8192, 128, torch.float32), (28672, 128, torch.float32))
@@ -63,11 +65,13 @@ def main() -> list[dict]:
     results = []
     for M, N, dtype in SHAPES:
         r = probe(row_gather, row_gather_plain, 0, M, N, dtype, N_HI, gen)
+        r["index_bits"] = _row_index_bits(M, N, M)
         us = r["ms"] * 1e3
-        print(f"M={M}: correct={r['exact']} max|diff|={r['max_abs_err']}  {us:.1f} us/call  "
+        print(f"M={M}: correct={r['exact']} max|diff|={r['max_abs_err']}  "
+              f"{r['index_bits']}-bit indices  {us:.2f} us/call  "
               f"{M / (us * 1e-6) / 1e6:.1f} Mrow/s  host {r['host_ms'] * 1e3:.1f} us/call  "
               f"bound {r['bound_ms'] * 1e3:.2f} us  "
-              f"plain {r['plain_ms'] * 1e3:.1f} us  torch.gather {r['library_ms'] * 1e3:.1f} us  "
+              f"plain {r['plain_ms'] * 1e3:.1f} us  torch.gather {r['library_ms'] * 1e3:.2f} us  "
               f"[{card}]", flush=True)
         if not r["exact"]:
             raise AssertionError(f"row_gather differs from its plain version at M={M}")
