@@ -12,8 +12,10 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      registers and spills as ``ptxas -v`` reports them;
   2. kernel: every kernel against its plain PyTorch version on the card:
      the deformable sampler at the three DAT level shapes of a 448x256
-     request for the shared-offset student (G 1) and for the non-shared
-     checkpoint (G 4/8/8, S 8/16/32), and at edge cases (far, integer,
+     request (B2 2) and of a held-out evaluation batch (8 pairs of
+     128x128, B2 16) for the shared-offset student (G 1, S 8/8/2), the
+     non-shared checkpoint (G 4/8/8, S 8/16/32) and the teacher (G 1, S
+     8/16/8), and at edge cases (far, integer,
      edge and negative positions, narrow groups, an odd group width, feat
      misaligned by a storage offset), in fp32 (max |diff| 0.0) and in bf16
      (0 ulps from the fp32 sampling of its bf16 inputs, rounded once); at
@@ -37,17 +39,35 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      between its bf16 and fp32 frames, the limit the CPU parity test with
      JAX sets;
   5. times: ms/frame at 448x256 in bf16 and in fp32 and, per DAT level
-     (shared and non-shared, ``tools/perf/sampler_probe.py``), the
-     sampler's time beside its bound, its plain version's time and
-     F.grid_sample's time;
+     of every shape of phase 2's level sets
+     (``tools/perf/sampler_probe.py``), the sampler's time beside its
+     bound, its plain version's time and F.grid_sample's time;
   6. gather: the two gather probes
      (``videoframeinterpolation_tpu_torch.tools.perf.gather_probe`` and
      ``.lane_gather_probe``) at every shape: one checked launch each,
-     times beside the bound, the plain version and ``torch.gather``.
+     times beside the bound, the plain version and ``torch.gather``;
+  7. checkpoints: ``DAT`` and ``DAT_fast_teacher`` load their committed
+     checkpoints and serve four 448x256 requests each in bf16 through
+     ``load_model``/``interp_pair``, with exactly 3 bf16 sampler launches
+     each; one request card against CPU as in phase 4; ms/frame in bf16;
+  8. modes: the student in bf16 at 448x256: ``multi_t_apply`` at t = 1/4,
+     1/2, 3/4 equal to the per-instant forward bit for bit
+     (``torch.equal``), one encoder run (which launches no sampler) and 3
+     bf16 launches per instant; the CLI's recursive and direct modes at
+     factor 4 on a 3-frame ``.npy`` sequence write 9 frames each;
+  9. eval: ``tools/eval_best.py``'s ``evaluate`` on the card in fp32 for
+     the three checkpoints (32 scenes, 128x128, seed 42): each PSNR within
+     0.005 dB and each SSIM within 5e-5 of the JAX package's CPU fp32 read
+     (``JAX_CPU_FP32``), with 12 fp32 sampler launches per checkpoint; the
+     TPU's record in ``eval_best.jsonl`` is printed beside it.
+
+Each path's sampler launches are counted from 0 just before it runs and
+read just after; the kernels line gives them per path.
 
 The serving entry point's ``load_model`` switches TF32 off (cuDNN
 convolutions and matmuls), so an fp32 model computes in full fp32 on the
-card, and phase 4 compares like with like.
+card, and phases 4 and 7 compare like with like; the evaluation switches
+it off too, for the SSIM's ``conv3d``.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -61,6 +81,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -90,6 +111,25 @@ ROW_CASES = {
     "k8m_bf16": (1024, 128, 8192, torch.bfloat16, 0),
     "m60000_fp32": (60000, 128, 60005, torch.float32, 0),
 }
+# Phase 9: the JAX package's CPU fp32 read of each committed checkpoint on
+# the held-out pool (32 scenes, 128x128, seed 42), (PSNR dB, SSIM) as
+# ``tools/quality/eval_best.py`` prints them, taken with
+#   JAX_PLATFORMS=cpu python tools/quality/eval_best.py --ckpt <ckpt> [...] --out <file>
+JAX_CPU_FP32 = {
+    # --ckpt tools/quality/results/
+    #     DATwConstantnCv1_shared_s8-8-2_distill1.0T8-16-8_24k.best.ckpt --shared --samples 8,8,2
+    "DAT_fast": (39.0314, 0.98187),
+    # --ckpt tools/quality/results/DATwConstantnCv1_24k.best.ckpt
+    "DAT": (37.9723, 0.97841),
+    # --ckpt configs/teachers/DATwConstantnCv1_shared_s8-16-8.best.ckpt --shared --samples 8,16,8
+    "DAT_fast_teacher": (38.0076, 0.97963),
+}
+EVAL_PSNR_TOL = 0.005
+EVAL_SSIM_TOL = 5e-5
+# The same checkpoints as read on a TPU (tools/quality/results/eval_best.jsonl
+# lines 8, 7 and 6): printed beside the card's read as history, not held.
+TPU_EVAL_BEST = {"DAT_fast": (39.0322, 0.98176), "DAT": (37.9752, 0.97795),
+                 "DAT_fast_teacher": (38.009, 0.97946)}
 # An index of K x N >= 2^31 elements (64-bit indices): 2^24 + 1 rows of a
 # 1024-row bf16 table, checked at its first and last rows.
 ROW_WIDE = (1024, 128, 2 ** 24 + 1, torch.bfloat16)
@@ -121,8 +161,8 @@ def sampler_cases(gen, level_inputs, level_sets):
     """name -> (feat, flow, residual, storage offset of feat in elements), fp32
     on the card: the level shapes, then inputs whose sample positions or
     widths hit the sampler's edge conditions."""
-    cases = {f"{kind}_{name}": (*level_inputs(gen, 2, h, w, 72, G, S, sc), 0)
-             for kind, levels in level_sets.items() for name, h, w, G, S, sc in levels}
+    cases = {f"{kind}_{name}": (*level_inputs(gen, B2, h, w, 72, G, S, sc), 0)
+             for kind, levels in level_sets.items() for name, B2, h, w, G, S, sc in levels}
     B2, h, w, C, S = 2, 32, 56, 72, 8
     feat, flow, res = level_inputs(gen, B2, h, w, C, 1, S, 2.0)
     gy, gx = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float32),
@@ -174,9 +214,8 @@ def main() -> int:
         emit(card)
 
     sys.path.insert(0, str(ROOT))
-    from videoframeinterpolation_tpu_torch.config import DAT_fast
-    from videoframeinterpolation_tpu_torch.interpolate import (
-        SHIPPED_STUDENT, interp_pair, load_model)
+    from videoframeinterpolation_tpu_torch.config import DAT_fast, PRESETS
+    from videoframeinterpolation_tpu_torch.interpolate import SHIPPED_STUDENT, load_model
     from videoframeinterpolation_tpu_torch.kernels import (
         build, lane_gather, lane_gather_plain, row_gather, row_gather_plain)
     from videoframeinterpolation_tpu_torch.kernels.window_sample import (
@@ -297,6 +336,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     tex = smooth_texture(rng, 320, 512)
     shift = (4, 8)   # (dy, dx) between frame 0 and frame 1
+    path_launches = {}
     with Phase("serve"):
         model = load_model(DAT_fast, SHIPPED_STUDENT, device="cuda")
         if model.dtype != torch.bfloat16 or DAT_fast.compute_dtype != "bfloat16":
@@ -309,63 +349,17 @@ def main() -> int:
         requests = [((H, W), 0.5), ((H, W), 0.25), ((H, W), 0.5), ((H, W), 0.25),
                     ((270, 480), 0.5)]
         deformable_sample.launches = deformable_sample.bf16_launches = 0
-        for i, ((h, w), t) in enumerate(requests):
-            f0, f1, mid = frames(tex, h, w, shift, t)
-            before, before_bf16 = deformable_sample.launches, deformable_sample.bf16_launches
-            start = time.perf_counter()
-            pred = interp_pair(model, f0, f1, t)
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - start) * 1e3
-            launched = deformable_sample.launches - before
-            launched_bf16 = deformable_sample.bf16_launches - before_bf16
-            if pred.shape != (h, w, 3) or pred.dtype != np.uint8:
-                raise AssertionError(f"request {i}: got {pred.dtype} {pred.shape}")
-            if launched != 3 or launched_bf16 != 3:
-                raise AssertionError(f"request {i}: {launched} sampler launches, "
-                                     f"{launched_bf16} in bf16; expected 3 bf16")
-            emit({"request": i, "hw": [h, w], "t": t, "host_ms": round(host_ms, 3),
-                  "launches": launched, "bf16_launches": launched_bf16,
-                  "psnr_vs_shifted_mid": round(psnr(pred, mid), 3),
-                  "psnr_frame0_vs_mid": round(psnr(f0, mid), 3)})
-        main_path_launches = deformable_sample.launches
-        emit({"main_path_launches": main_path_launches,
+        serve_requests(model, requests, tex, shift, "DAT_fast")
+        path_launches["serve"] = deformable_sample.launches
+        emit({"main_path_launches": path_launches["serve"],
               "bf16_launches": deformable_sample.bf16_launches, "requests": len(requests)})
 
     fp32_cfg = dataclasses.replace(DAT_fast, compute_dtype="float32")
+    f0, f1, _ = frames(tex, H, W, shift, 0.5)
+    x0, x1 = (torch.from_numpy(f.astype(np.float32) / 255.0)[None] for f in (f0, f1))
+    t5 = torch.full((1, 1, 1, 1), 0.5)
     with Phase("cpu"):
-        torch.set_num_threads(os.cpu_count() or 1)
-        f0, f1, _ = frames(tex, H, W, shift, 0.5)
-        x0, x1 = (torch.from_numpy(f.astype(np.float32) / 255.0)[None] for f in (f0, f1))
-        t5 = torch.full((1, 1, 1, 1), 0.5)
-        model32 = load_model(fp32_cfg, SHIPPED_STUDENT, device="cuda")
-        with torch.inference_mode():
-            on_card = {"float32": model32(x0.cuda(), x1.cuda(), t5.cuda()).cpu(),
-                       "bfloat16": model(x0.cuda(), x1.cuda(), t5.cuda()).cpu()}
-            cpu, cpu_s = {}, {}
-            for cfg in (fp32_cfg, DAT_fast):
-                start = time.perf_counter()
-                cpu[cfg.compute_dtype] = load_model(cfg, SHIPPED_STUDENT, device="cpu")(x0, x1, t5)
-                cpu_s[cfg.compute_dtype] = round(time.perf_counter() - start, 3)
-        for name, out in on_card.items():
-            if not (out.dtype == torch.float32 and torch.isfinite(out).all()
-                    and out.shape == (1, H, W, 3)):
-                raise AssertionError(f"card output ({name}): {out.dtype} {tuple(out.shape)} "
-                                     "or non-finite")
-        e2e_err = (on_card["float32"] - cpu["float32"]).abs().max().item()
-        emit({"fp32_max_abs_err_vs_cpu": e2e_err,
-              "mean_abs_err": (on_card["float32"] - cpu["float32"]).abs().mean().item(),
-              "tol": E2E_TOL, "cpu_seconds": cpu_s["float32"]})
-        if not e2e_err <= E2E_TOL:
-            raise AssertionError(f"card vs CPU, fp32: {e2e_err} > {E2E_TOL}")
-        bf16_gap = (cpu["bfloat16"] - cpu["float32"]).abs().mean().item()
-        bf16_err = (on_card["bfloat16"] - cpu["bfloat16"]).abs().mean().item()
-        emit({"bf16_mean_abs_err_vs_cpu": bf16_err,
-              "max_abs_err": (on_card["bfloat16"] - cpu["bfloat16"]).abs().max().item(),
-              "cpu_bf16_vs_fp32_mean_abs": bf16_gap, "limit": BF16_GAP_SHARE * bf16_gap,
-              "share_of_gap": bf16_err / bf16_gap, "cpu_seconds": cpu_s["bfloat16"]})
-        if not bf16_err <= BF16_GAP_SHARE * bf16_gap:
-            raise AssertionError(f"card vs CPU, bf16: mean {bf16_err} > {BF16_GAP_SHARE} x "
-                                 f"{bf16_gap}")
+        model32 = card_vs_cpu(DAT_fast, SHIPPED_STUDENT, model, x0, x1, t5)
 
     # The CPU threads of phase 4 would compete with the thread that issues
     # the card's work.
@@ -376,6 +370,7 @@ def main() -> int:
             for name, m in (("bf16", model), ("fp32", model32)):
                 frame_ms = timing.loop_ms(lambda: m(*xs), 20, warmup=5) / 20
                 emit({f"ms_per_frame_448x256_{name}": frame_ms, "card": card})
+        del model32
         per_level = sampler_probe.main()
         # The main path's levels: the shared-offset student in bf16.
         shared = list(per_level["shared"]["bfloat16"].values())
@@ -403,6 +398,33 @@ def main() -> int:
                 raise AssertionError(f"{name}: {gather_launches[name]} launches for "
                                      f"{len(rows)} shapes, or a result that is not exact")
 
+    with Phase("checkpoints"):
+        for name in ("DAT", "DAT_fast_teacher"):
+            cfg, ckpt = PRESETS[name]
+            served = load_model(cfg, ckpt, device="cuda")
+            emit({"checkpoint": str(ckpt.relative_to(ROOT)), "config": name,
+                  "shared_offsets": cfg.shared_offsets, "dat_samples": list(cfg.dat_samples),
+                  "params": sum(p.numel() for p in served.parameters()),
+                  "dtype": str(served.dtype)})
+            deformable_sample.launches = deformable_sample.bf16_launches = 0
+            serve_requests(served, [((H, W), 0.5), ((H, W), 0.25)] * 2, tex, shift, name)
+            path_launches[f"checkpoints_{name}"] = deformable_sample.launches
+            emit({"config": name, "path_launches": deformable_sample.launches,
+                  "bf16_launches": deformable_sample.bf16_launches})
+            card_vs_cpu(cfg, ckpt, served, x0, x1, t5)
+            torch.set_num_threads(1)
+            with torch.inference_mode():
+                emit({f"ms_per_frame_448x256_bf16_{name}":
+                      timing.loop_ms(lambda: served(*xs), 20, warmup=5) / 20, "card": card})
+            del served
+            torch.cuda.empty_cache()
+
+    with Phase("modes"):
+        check_modes(model, tex, shift, path_launches)
+
+    with Phase("eval"):
+        check_eval(path_launches)
+
     def total(rows, key):
         return sum(r[key] for r in rows)
 
@@ -411,7 +433,8 @@ def main() -> int:
         "route": "cuda",
         "source": "videoframeinterpolation_tpu_torch/kernels/csrc/deformable_sample.cu",
         "replaces": "videoframeinterpolation_tpu/kernels/window_sample.py:158",
-        "launches": main_path_launches,
+        "launches": path_launches["serve"],
+        "launches_per_path": path_launches,
         "max_abs_err": max_err["deformable_sample"],
         "ms": total(shared, "ms"),
         "plain_ms": total(shared, "plain_ms"),
@@ -446,6 +469,181 @@ def main() -> int:
                                  "count": torch.cuda.device_count()}})
     return 0
 
+
+def serve_requests(model, requests, tex, shift, name: str) -> None:
+    """Serve each ``((h, w), t)`` request through ``interp_pair``; each must
+    give a uint8 ``(h, w, 3)`` frame with exactly 3 bf16 sampler launches."""
+    from videoframeinterpolation_tpu_torch.interpolate import interp_pair
+    from videoframeinterpolation_tpu_torch.kernels import deformable_sample
+
+    for i, ((h, w), t) in enumerate(requests):
+        f0, f1, mid = frames(tex, h, w, shift, t)
+        before, before_bf16 = deformable_sample.launches, deformable_sample.bf16_launches
+        start = time.perf_counter()
+        pred = interp_pair(model, f0, f1, t)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - start) * 1e3
+        launched = deformable_sample.launches - before
+        launched_bf16 = deformable_sample.bf16_launches - before_bf16
+        if pred.shape != (h, w, 3) or pred.dtype != np.uint8:
+            raise AssertionError(f"{name} request {i}: got {pred.dtype} {pred.shape}")
+        if launched != 3 or launched_bf16 != 3:
+            raise AssertionError(f"{name} request {i}: {launched} sampler launches, "
+                                 f"{launched_bf16} in bf16; expected 3 bf16")
+        emit({"config": name, "request": i, "hw": [h, w], "t": t, "host_ms": round(host_ms, 3),
+              "launches": launched, "bf16_launches": launched_bf16,
+              "psnr_vs_shifted_mid": round(psnr(pred, mid), 3),
+              "psnr_frame0_vs_mid": round(psnr(f0, mid), 3)})
+
+
+def card_vs_cpu(cfg, ckpt, card_model, x0, x1, t):
+    """One request on the card against the same checkpoint on the CPU (plain
+    path): an fp32 copy of ``cfg`` within ``E2E_TOL`` max abs, and
+    ``card_model`` (``cfg`` in bf16) within ``BF16_GAP_SHARE`` of the CPU's
+    own bf16-vs-fp32 gap in mean abs. Returns the fp32 model on the card."""
+    from videoframeinterpolation_tpu_torch.interpolate import load_model
+
+    fp32_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    torch.set_num_threads(os.cpu_count() or 1)
+    model32 = load_model(fp32_cfg, ckpt, device="cuda")
+    with torch.inference_mode():
+        on_card = {"float32": model32(x0.cuda(), x1.cuda(), t.cuda()).cpu(),
+                   "bfloat16": card_model(x0.cuda(), x1.cuda(), t.cuda()).cpu()}
+        cpu, cpu_s = {}, {}
+        for c in (fp32_cfg, cfg):
+            start = time.perf_counter()
+            cpu[c.compute_dtype] = load_model(c, ckpt, device="cpu")(x0, x1, t)
+            cpu_s[c.compute_dtype] = round(time.perf_counter() - start, 3)
+    shape = (1, *x0.shape[1:])
+    for name, out in on_card.items():
+        if not (out.dtype == torch.float32 and torch.isfinite(out).all() and out.shape == shape):
+            raise AssertionError(f"card output ({name}): {out.dtype} {tuple(out.shape)} "
+                                 "or non-finite")
+    ckpt_name = Path(ckpt).name
+    e2e_err = (on_card["float32"] - cpu["float32"]).abs().max().item()
+    emit({"checkpoint": ckpt_name, "fp32_max_abs_err_vs_cpu": e2e_err,
+          "mean_abs_err": (on_card["float32"] - cpu["float32"]).abs().mean().item(),
+          "tol": E2E_TOL, "cpu_seconds": cpu_s["float32"]})
+    if not e2e_err <= E2E_TOL:
+        raise AssertionError(f"{ckpt_name}: card vs CPU, fp32: {e2e_err} > {E2E_TOL}")
+    bf16_gap = (cpu["bfloat16"] - cpu["float32"]).abs().mean().item()
+    bf16_err = (on_card["bfloat16"] - cpu["bfloat16"]).abs().mean().item()
+    emit({"checkpoint": ckpt_name, "bf16_mean_abs_err_vs_cpu": bf16_err,
+          "max_abs_err": (on_card["bfloat16"] - cpu["bfloat16"]).abs().max().item(),
+          "cpu_bf16_vs_fp32_mean_abs": bf16_gap, "limit": BF16_GAP_SHARE * bf16_gap,
+          "share_of_gap": bf16_err / bf16_gap, "cpu_seconds": cpu_s["bfloat16"]})
+    if not bf16_err <= BF16_GAP_SHARE * bf16_gap:
+        raise AssertionError(f"{ckpt_name}: card vs CPU, bf16: mean {bf16_err} > "
+                             f"{BF16_GAP_SHARE} x {bf16_gap}")
+    return model32
+
+
+def check_modes(model, tex, shift, path_launches: dict) -> None:
+    """Multi-instant serving of the student in bf16 at 448x256: the frames
+    of ``multi_t_apply`` at t = 1/4, 1/2, 3/4 equal the per-instant forward
+    bit for bit, with one encoder run and 3 bf16 sampler launches per
+    instant (the encoder launches none); then the CLI's recursive and direct
+    modes at factor 4 on a 3-frame ``.npy`` sequence write 9 frames each."""
+    from videoframeinterpolation_tpu_torch import interpolate
+    from videoframeinterpolation_tpu_torch.kernels import deformable_sample
+    from videoframeinterpolation_tpu_torch.models import multi_t_apply
+
+    f0, f1, _ = frames(tex, H, W, shift, 0.5)
+    x0, x1 = (torch.from_numpy(f.astype(np.float32) / 255.0)[None].cuda() for f in (f0, f1))
+    ts = (0.25, 0.5, 0.75)
+    with torch.inference_mode():
+        deformable_sample.launches = deformable_sample.bf16_launches = 0
+        model.encode(x0, x1)
+        encoder_launches = deformable_sample.launches
+        encodes = []
+        encode = model.encode
+        model.encode = lambda a, b: (encodes.append(1), encode(a, b))[1]
+        try:
+            deformable_sample.launches = deformable_sample.bf16_launches = 0
+            direct = multi_t_apply(model, x0, x1, ts)
+            torch.cuda.synchronize()
+            launched, launched_bf16 = deformable_sample.launches, deformable_sample.bf16_launches
+        finally:
+            del model.encode
+        path_launches["modes_multi_t"] = launched
+        singles = [model(x0, x1, torch.full((1, 1, 1, 1), t, device="cuda")) for t in ts]
+        torch.cuda.synchronize()
+    equal = [bool(torch.equal(direct[k], s)) for k, s in enumerate(singles)]
+    emit({"multi_t_apply": {"ts": list(ts), "shape": list(direct.shape),
+                            "equal_to_per_t_forward": equal, "encoder_runs": len(encodes),
+                            "encoder_launches": encoder_launches, "launches": launched,
+                            "bf16_launches": launched_bf16,
+                            "max_abs_diff": max((direct[k] - s).abs().max().item()
+                                                for k, s in enumerate(singles))}})
+    if not all(equal):
+        raise AssertionError(f"multi_t_apply differs from the per-t forward: {equal}")
+    if encoder_launches or len(encodes) != 1 or (launched, launched_bf16) != (9, 9):
+        raise AssertionError(f"multi_t_apply: {len(encodes)} encoder runs, encoder launches "
+                             f"{encoder_launches}, {launched} launches ({launched_bf16} bf16); "
+                             "expected 1, 0 and 9 bf16")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        in_dir = Path(tmp) / "in"
+        in_dir.mkdir()
+        for i in range(3):
+            np.save(in_dir / f"{i:03d}.npy", frames(tex, H, W, (i * shift[0], i * shift[1]),
+                                                    0.0)[1])
+        for mode in ("recursive", "direct"):
+            out_dir = Path(tmp) / mode
+            deformable_sample.launches = deformable_sample.bf16_launches = 0
+            interpolate.main(["--in_dir", str(in_dir), "--out_dir", str(out_dir),
+                              "--factor", "4", "--mode", mode, "--device", "cuda"])
+            torch.cuda.synchronize()
+            written = sorted(p.name for p in out_dir.iterdir())
+            shapes = {np.load(out_dir / n).shape for n in written}
+            path_launches[f"modes_cli_{mode}"] = deformable_sample.launches
+            emit({"cli_mode": mode, "factor": 4, "frames_in": 3, "frames_out": len(written),
+                  "shapes": sorted(shapes), "launches": deformable_sample.launches,
+                  "bf16_launches": deformable_sample.bf16_launches})
+            if written != [f"{i:06d}.npy" for i in range(9)] or shapes != {(H, W, 3)}:
+                raise AssertionError(f"--mode {mode} --factor 4 wrote {written} of {shapes}")
+            if deformable_sample.bf16_launches != 18:
+                raise AssertionError(f"--mode {mode}: {deformable_sample.bf16_launches} bf16 "
+                                     "sampler launches; expected 18 (6 frames, 3 each)")
+
+
+def check_eval(path_launches: dict) -> None:
+    """The held-out evaluation of every committed checkpoint on the card in
+    fp32 (32 scenes, 128x128, seed 42): each PSNR within ``EVAL_PSNR_TOL``
+    dB and each SSIM within ``EVAL_SSIM_TOL`` of the JAX package's CPU fp32
+    read (``JAX_CPU_FP32``); the TPU's record is printed beside it."""
+    from videoframeinterpolation_tpu_torch.config import PRESETS
+    from videoframeinterpolation_tpu_torch.kernels import deformable_sample
+    from videoframeinterpolation_tpu_torch.tools.eval_best import evaluate
+
+    for name, (ref_psnr, ref_ssim) in JAX_CPU_FP32.items():
+        cfg, ckpt = PRESETS[name]
+        deformable_sample.launches = deformable_sample.bf16_launches = 0
+        start = time.perf_counter()
+        (rec,) = evaluate(cfg, [ckpt], eval_items=32, crop=128, seed=42, device="cuda")
+        seconds = time.perf_counter() - start
+        path_launches[f"eval_{name}"] = deformable_sample.launches
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("the evaluation left TF32 on")
+        tpu_psnr, tpu_ssim = TPU_EVAL_BEST[name]
+        emit({"eval": name, "checkpoint": str(ckpt.relative_to(ROOT)), "step": rec["step"],
+              "n": rec["n"], "psnr": rec["psnr"], "ssim": rec["ssim"],
+              "jax_cpu_fp32": {"psnr": ref_psnr, "ssim": ref_ssim},
+              "psnr_minus_jax_cpu": rec["psnr"] - ref_psnr,
+              "ssim_minus_jax_cpu": rec["ssim"] - ref_ssim,
+              "tpu_eval_best_jsonl": {"psnr": tpu_psnr, "ssim": tpu_ssim,
+                                      "psnr_minus_tpu": rec["psnr"] - tpu_psnr,
+                                      "ssim_minus_tpu": rec["ssim"] - tpu_ssim},
+              "launches": deformable_sample.launches,
+              "bf16_launches": deformable_sample.bf16_launches, "seconds": round(seconds, 3)})
+        if rec["n"] != 32 or deformable_sample.launches != 12 or deformable_sample.bf16_launches:
+            raise AssertionError(f"eval {name}: {rec['n']} items, {deformable_sample.launches} "
+                                 f"launches ({deformable_sample.bf16_launches} bf16); expected "
+                                 "32 items and 12 fp32 launches (4 batches of 8, 3 each)")
+        if not (abs(rec["psnr"] - ref_psnr) <= EVAL_PSNR_TOL
+                and abs(rec["ssim"] - ref_ssim) <= EVAL_SSIM_TOL):
+            raise AssertionError(f"eval {name}: PSNR {rec['psnr']} / SSIM {rec['ssim']} against "
+                                 f"JAX's CPU fp32 {ref_psnr} / {ref_ssim}")
 
 def check_row_gather(gen, probe_shapes) -> None:
     """The row gather at the probes' shapes (K = M + 5) and ``ROW_CASES``,

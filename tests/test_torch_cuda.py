@@ -2,12 +2,15 @@
 
 ``chip_smoke.py`` holds the kernels against their plain versions at the
 shapes of the serving path and of the gather probes; these tests hold the
-sampler at the DAT level shapes of both checkpoints, at narrow and odd
+sampler at the DAT level shapes of the three checkpoints (a 448x256
+request and a held-out evaluation batch of each), at narrow and odd
 group widths, at a storage offset, at every vector width and both index
 widths, and add odd sizes for the gathers (a table height that is no
 multiple of 32), the row gather at both index widths (a misaligned table
 and index, more index rows than table rows) and its refusal of an index
-width the call does not fit, and one counted launch per call.
+width the call does not fit, and one counted launch per call; and
+``multi_t_apply`` on the card, whose frames equal the per-instant
+forward's bit for bit.
 
 These tests need an NVIDIA card with nvcc (the kernels have no CPU mode) and
 skip without one. On the card's machine, which has no JAX, run them without
@@ -45,6 +48,20 @@ SAMPLER_CASES = {
     "odd_cg7": (2, 11, 17, 21, 3, 5, 3.0, 0),
     "misaligned_by_1": (2, 32, 56, 72, 1, 8, 2.0, 1),
     "misaligned_by_2": (2, 32, 56, 72, 1, 8, 2.0, 2),
+    # The teacher's levels of a 448x256 request (G 1, S 8/16/8; its lv3 is
+    # shared_lv3), and the levels of a held-out evaluation batch (8 pairs of
+    # 128x128, B2 16) of each configuration (the teacher's lv3 is
+    # eval_shared_lv3).
+    "teacher_lv2": (2, 64, 112, 72, 1, 16, 4.0, 0),
+    "teacher_lv1": (2, 128, 224, 72, 1, 8, 8.0, 0),
+    "eval_shared_lv3": (16, 16, 16, 72, 1, 8, 2.0, 0),
+    "eval_shared_lv2": (16, 32, 32, 72, 1, 8, 4.0, 0),
+    "eval_shared_lv1": (16, 64, 64, 72, 1, 2, 8.0, 0),
+    "eval_non_shared_lv3": (16, 16, 16, 72, 4, 8, 2.0, 0),
+    "eval_non_shared_lv2": (16, 32, 32, 72, 8, 16, 4.0, 0),
+    "eval_non_shared_lv1": (16, 64, 64, 72, 8, 32, 8.0, 0),
+    "eval_teacher_lv2": (16, 32, 32, 72, 1, 16, 4.0, 0),
+    "eval_teacher_lv1": (16, 64, 64, 72, 1, 8, 8.0, 0),
 }
 
 
@@ -182,3 +199,21 @@ def test_lane_gather_matches_plain_version(gen, dtype):
     torch.cuda.synchronize()
     assert torch.equal(out, lane_gather_plain(x, idx))
     assert lane_gather.launches == before + 1
+
+
+def test_multi_t_apply_equals_the_per_instant_forward_on_the_card(gen):
+    from videoframeinterpolation_tpu_torch.config import DAT_fast
+    from videoframeinterpolation_tpu_torch.interpolate import SHIPPED_STUDENT, load_model
+    from videoframeinterpolation_tpu_torch.models import multi_t_apply
+
+    model = load_model(DAT_fast, SHIPPED_STUDENT, device="cuda")
+    x0 = torch.rand((1, 64, 96, 3), generator=gen, device="cuda")
+    x1 = torch.roll(x0, (2, 3), dims=(1, 2))
+    ts = (0.25, 0.5, 0.75)
+    with torch.inference_mode():
+        before = deformable_sample.bf16_launches
+        frames = multi_t_apply(model, x0, x1, ts)
+        assert deformable_sample.bf16_launches == before + 3 * len(ts)
+        for k, t in enumerate(ts):
+            assert torch.equal(frames[k], model(x0, x1, torch.full((1, 1, 1, 1), t,
+                                                                   device="cuda")))

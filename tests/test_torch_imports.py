@@ -61,7 +61,8 @@ def test_importing_the_port_and_chip_smoke_pulls_in_nothing_forbidden():
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     for mod in ("interpolate", "kernels.gather", "tools.perf.gather_probe",
-                "tools.perf.lane_gather_probe", "tools.perf.sampler_probe", "tools.perf.timing"):
+                "tools.perf.lane_gather_probe", "tools.perf.sampler_probe", "tools.perf.timing",
+                "config", "models.base", "data.synthetic", "eval.metrics", "tools.eval_best"):
         assert f"videoframeinterpolation_tpu_torch.{mod}" in result["added"]
     assert "chip_smoke" in result["added"]
     assert not [m for m in result["added"] if _forbidden(m)]

@@ -3,12 +3,16 @@
 Only the fields the serving path reads are kept. There is no YAML parser:
 configurations are presets written out in Python, and a test holds each
 preset against the JAX ``Config`` loaded from its YAML file.
+:data:`PRESETS` names each preset with the committed checkpoint it serves.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Union
+from pathlib import Path
+from typing import NamedTuple, Optional, Sequence, Union
+
+REPO_ROOT = Path(__file__).resolve().parent.parent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,3 +44,27 @@ DAT_fast = Config(
     dat_samples=(8, 8, 2),
     compute_dtype="bfloat16",
 )
+
+# configs/DAT.yaml: the non-shared flagship (one offset set per group, the
+# reference's 8/16/32 samples).
+DAT = dataclasses.replace(DAT_fast, shared_offsets=False, dat_samples=(8, 16, 32))
+
+# configs/DAT_fast_distill.yaml with its teacher_overrides applied: the
+# distillation teacher (shared offsets, 8/16/8 samples).
+DAT_fast_teacher = dataclasses.replace(DAT_fast, dat_samples=(8, 16, 8))
+
+
+class Preset(NamedTuple):
+    config: Config
+    ckpt: Path
+
+
+# name -> the preset and its committed checkpoint (a flax msgpack TrainState).
+PRESETS = {
+    "DAT_fast": Preset(DAT_fast, REPO_ROOT / "tools" / "quality" / "results" /
+                       "DATwConstantnCv1_shared_s8-8-2_distill1.0T8-16-8_24k.best.ckpt"),
+    "DAT": Preset(DAT, REPO_ROOT / "tools" / "quality" / "results" /
+                  "DATwConstantnCv1_24k.best.ckpt"),
+    "DAT_fast_teacher": Preset(DAT_fast_teacher, REPO_ROOT / "configs" / "teachers" /
+                               "DATwConstantnCv1_shared_s8-16-8.best.ckpt"),
+}

@@ -1,5 +1,6 @@
-"""Input handling of the serving path."""
+"""Input handling of the serving path, and the procedural data of the quality study."""
 
 from .padder import InputPadder
+from .synthetic import SyntheticMotion
 
-__all__ = ["InputPadder"]
+__all__ = ["InputPadder", "SyntheticMotion"]

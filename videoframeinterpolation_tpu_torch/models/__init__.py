@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..config import Config
+from .base import multi_t_apply
 from .dat import DATwConstantnC
 
 
@@ -47,4 +48,4 @@ def create_model(cfg: Config) -> DATwConstantnC:
     return build(cfg).to(dtype)
 
 
-__all__ = ["DATwConstantnC", "create_model", "MODEL_REGISTRY"]
+__all__ = ["DATwConstantnC", "create_model", "multi_t_apply", "MODEL_REGISTRY"]

@@ -1,18 +1,21 @@
-"""The DAT levels' deformable sampler on the card, at the level shapes of a 448x256 request.
+"""The DAT levels' deformable sampler on the card, at the level shapes the port's paths launch.
 
     python -m videoframeinterpolation_tpu_torch.tools.perf.sampler_probe
 
 Times :func:`...kernels.window_sample.deformable_sample` at the three levels
-of the shared-offset flagship (``configs/DAT_fast.yaml``: G 1, S 8/8/2) and
-of the non-shared one (``configs/DAT.yaml``: G 4/8/8, S 8/16/32), with
-B2 2 and C 72 (both frames of one request, nf 72), in bf16 and fp32. Per
-level it prints the kernel's time on the device's clock (calls captured in
-a CUDA graph, marginal over 16 calls), its time issued from Python, the
-plain version's, ``F.grid_sample``'s on the same work (device clock, inputs
-arranged beforehand), the bound (bytes: each input read once, the output
-written once, over 3.35 TB/s; operations: 4 multiplies and 3 adds per
-output element at the fp32 rate) and the kernel's share of it. Needs a
-CUDA device, and raises without one. Timing launches are not counted in
+of each served configuration: the shared-offset student
+(``configs/DAT_fast.yaml``: G 1, S 8/8/2), the non-shared flagship
+(``configs/DAT.yaml``: G 4/8/8, S 8/16/32) and the distillation teacher
+(G 1, S 8/16/8), each at a 448x256 request (B2 2: both frames of one
+pair) and at a held-out evaluation batch (8 pairs of 128x128, B2 16), with
+C 72 (nf 72), in bf16 and fp32. Per level it prints the kernel's time on
+the device's clock (calls captured in a CUDA graph, marginal over 16
+calls), its time issued from Python, the plain version's,
+``F.grid_sample``'s on the same work (device clock, inputs arranged
+beforehand), the bound (bytes: each input read once, the output written
+once, over 3.35 TB/s; operations: 4 multiplies and 3 adds per output
+element at the fp32 rate) and the kernel's share of it. Needs a CUDA
+device, and raises without one. Timing launches are not counted in
 ``deformable_sample.launches``.
 """
 
@@ -28,13 +31,26 @@ from ...kernels.window_sample import deformable_sample, deformable_sample_plain
 from .timing import bytes_bound_ms, device_marginal_ms, loop_ms, require_card
 
 FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
-B2, C = 2, 72
-# (name, H, W, G, S, offset_scale) of the DAT levels at 448x256.
-SHARED_LEVELS = (("lv3", 32, 56, 1, 8, 2.0), ("lv2", 64, 112, 1, 8, 4.0),
-                 ("lv1", 128, 224, 1, 2, 8.0))
-NON_SHARED_LEVELS = (("lv3", 32, 56, 4, 8, 2.0), ("lv2", 64, 112, 8, 16, 4.0),
-                     ("lv1", 128, 224, 8, 32, 8.0))
-LEVEL_SETS = {"shared": SHARED_LEVELS, "non_shared": NON_SHARED_LEVELS}
+C = 72
+# name -> (G, S) per level lv3, lv2, lv1, and each level's offset scale.
+CONFIG_LEVELS = {"shared": ((1, 8), (1, 8), (1, 2)),
+                 "non_shared": ((4, 8), (8, 16), (8, 32)),
+                 "teacher": ((1, 8), (1, 16), (1, 8))}
+SCALES = (2.0, 4.0, 8.0)
+
+
+def _levels(B2: int, H: int, W: int, gs) -> tuple:
+    """``(name, B2, h, w, G, S, offset_scale)`` of the three DAT levels of an
+    ``H x W`` input (1/8, 1/4 and 1/2 of it)."""
+    return tuple((f"lv{3 - i}", B2, H // d, W // d, G, S, SCALES[i])
+                 for i, ((G, S), d) in enumerate(zip(gs, (8, 4, 2))))
+
+
+# A 448x256 request (B2 2) and a held-out evaluation batch (8 pairs of
+# 128x128, B2 16) of each configuration.
+LEVEL_SETS = {**{kind: _levels(2, 256, 448, gs) for kind, gs in CONFIG_LEVELS.items()},
+              **{f"eval_{kind}": _levels(16, 128, 128, gs)
+                 for kind, gs in CONFIG_LEVELS.items()}}
 
 
 def level_inputs(gen: torch.Generator, B2: int, h: int, w: int, C: int, G: int, S: int,
@@ -93,7 +109,7 @@ def main() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows: dict = {}
     for kind, levels in LEVEL_SETS.items():
-        for name, h, w, G, S, scale in levels:
+        for name, B2, h, w, G, S, scale in levels:
             fp32 = level_inputs(gen, B2, h, w, C, G, S, scale)
             for dtype in (torch.bfloat16, torch.float32):
                 row = level_times(*(x.to(dtype) for x in fp32))

@@ -130,19 +130,21 @@ def _check_unchunked(tree) -> None:
             _check_unchunked(v)
 
 
-def read_flax_msgpack(path: str | Path) -> dict:
-    """Return the ``params`` tree of a flax msgpack TrainState file.
-
-    Leaves are numpy arrays, bit-identical to what
-    ``flax.serialization.msgpack_restore`` gives; ``opt_state`` and ``step``
-    are decoded and dropped.
-    """
+def read_flax_state(path: str | Path) -> dict:
+    """Return a flax msgpack TrainState file as a dict: ``step`` (a numpy
+    scalar), ``params`` and ``opt_state``, with numpy leaves bit-identical
+    to what ``flax.serialization.msgpack_restore`` gives."""
     reader = _Reader(Path(path).read_bytes())
     state = reader.value()
     if reader.pos != len(reader.buf):
         raise ValueError(f"{path}: trailing bytes after the msgpack object")
     if not isinstance(state, dict) or "params" not in state:
         raise ValueError(f"{path}: not a flax TrainState (no 'params' key)")
-    params = state["params"]
-    _check_unchunked(params)
-    return params
+    _check_unchunked(state["params"])
+    return state
+
+
+def read_flax_msgpack(path: str | Path) -> dict:
+    """Return the ``params`` tree of a flax msgpack TrainState file (see
+    :func:`read_flax_state`)."""
+    return read_flax_state(path)["params"]
