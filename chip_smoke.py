@@ -23,7 +23,16 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      every narrower width and the 64-bit index, so that every instance of
      the kernel runs; and a 1080p non-shared level whose output has more
      than 2^31 elements (64-bit indices), checked at its first and last
-     (frame, sample) slices; the row and lane gathers at every shape of
+     (frame, sample) slices; the sampler's backward kernel against autograd
+     through the plain version (``deformable_sample_backward_plain``) at the
+     student's and the teacher's level shapes of a training batch (8 pairs
+     of 128x128, B2 16) and at edge cases (far outside, integer
+     coordinates, every sample of every query on one pixel, odd group
+     widths), in fp32 (each gradient within 1e-5 of its max abs) and bf16
+     (at most 1 ulp from the fp32 gradient of the bf16 inputs, rounded
+     once, or, where the fp32 sums cancel, within the fp32 limit), at the
+     widths the wrapper picks, every narrower width and both index widths;
+     the row and lane gathers at every shape of
      their probes and at an odd shape (equal, max |diff| 0); the row
      gather also at ``ROW_CASES`` (the largest probe shape in bf16, ragged
      rows, x and idx one element off alignment, K = 8M, a table of 60000
@@ -59,10 +68,27 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      the three checkpoints (32 scenes, 128x128, seed 42): each PSNR within
      0.005 dB and each SSIM within 5e-5 of the JAX package's CPU fp32 read
      (``JAX_CPU_FP32``), with 12 fp32 sampler launches per checkpoint; the
-     TPU's record in ``eval_best.jsonl`` is printed beside it.
+     TPU's record in ``eval_best.jsonl`` is printed beside it;
+ 10. train: (a) one distillation step of the shipped student's TrainState
+     (step 14500) with the committed teacher, fp32, TF32 off, batch 2 at
+     128x128, on the card against the same step on the CPU: the loss within
+     1e-5 relative, the whole gradient within 1e-4 relative (L2), the
+     updated parameters, ``mu`` and ``nu`` within 1e-6 absolute; each
+     parameter's gradient error (of its max abs, floored at 1% of the
+     largest) is printed beside the CPU's own change under rounding-level
+     noise on its parameters (each times 1 + 2^-24 z); (b) the
+     recipe through ``tools/head_to_head.py`` in bf16, resumed from that
+     TrainState for 500 steps to step 15000 on the 768-scene pool: the
+     step-15000 ``train_loss`` within 5% of the record's and the held-out
+     PSNR within 0.2 dB of it (``RECORD_15000``), with 3 student forward, 3
+     teacher forward and 3 backward sampler launches per step; ms per step
+     and peak memory; (c) the ``.ckpt`` it wrote, read back by the port's
+     reader, equals the final in-memory state leaf for leaf.
 
-Each path's sampler launches are counted from 0 just before it runs and
-read just after; the kernels line gives them per path.
+Each path's sampler launches (forward and backward) are counted from 0
+just before it runs and read just after; the kernels line gives them per
+path. Phase 5 also times the backward kernel at the student's training
+levels (``sampler_probe.main_backward``).
 
 The serving entry point's ``load_model`` switches TF32 off (cuDNN
 convolutions and matmuls), so an fp32 model computes in full fp32 on the
@@ -130,6 +156,44 @@ EVAL_SSIM_TOL = 5e-5
 # lines 8, 7 and 6): printed beside the card's read as history, not held.
 TPU_EVAL_BEST = {"DAT_fast": (39.0322, 0.98176), "DAT": (37.9752, 0.97795),
                  "DAT_fast_teacher": (38.009, 0.97946)}
+# Phase 2, the sampler's backward kernel: name -> (B2, H, W, C, G, S, residual
+# scale, flow magnitude). The levels of a training batch (8 pairs of
+# 128x128, B2 16) of the student (S 8/8/2) and the teacher (S 8/16/8; its
+# lv3 is the student's), then edge cases: every tap outside, integer
+# coordinates, groups of 9 and 7 channels, and every sample of every query
+# on one pixel (all atomics of the call into four taps).
+BACKWARD_CASES = {
+    "train_student_lv3": (16, 16, 16, 72, 1, 8, 2.0, 4.0),
+    "train_student_lv2": (16, 32, 32, 72, 1, 8, 4.0, 4.0),
+    "train_student_lv1": (16, 64, 64, 72, 1, 2, 8.0, 4.0),
+    "train_teacher_lv2": (16, 32, 32, 72, 1, 16, 4.0, 4.0),
+    "train_teacher_lv1": (16, 64, 64, 72, 1, 8, 8.0, 4.0),
+    "far_outside": (2, 9, 13, 40, 8, 3, 30.0, 1e4),
+    "integer": (2, 16, 16, 72, 1, 8, 2.0, 3.0),
+    "cg9": (1, 9, 13, 72, 8, 3, 30.0, 4.0),
+    "odd_cg7": (2, 11, 17, 21, 3, 5, 3.0, 4.0),
+    "one_pixel": (2, 16, 16, 16, 1, 8, 0.0, 0.0),
+}
+BWD_FP32_TOL = 1e-5   # of each gradient's max abs: fp32 sums in other orders, atomics
+# bf16: at most 1 ulp from the fp32 gradient of the bf16 inputs, rounded once;
+# where the fp32 sums cancel (a result far below its terms), the two fp32
+# sums differ by more than a bf16 ulp of the result, and the element is held
+# to BWD_FP32_TOL of the gradient's max abs instead.
+BWD_BF16_ULPS = 1.0
+# Phase 10: the shipped student's curve at step 15000
+# (tools/quality/results/DATwConstantnCv1_shared_s8-8-2_distill1.0T8-16-8_24k.jsonl),
+# the mean loss of steps 14501-15000 and the held-out PSNR.
+RECORD_15000 = {"train_loss": 0.01715, "val_psnr": 39.0027}
+TRAIN_LOSS_REL_TOL = 0.05
+TRAIN_PSNR_TOL = 0.2
+STEP_LOSS_REL_TOL = 1e-5   # (a): card vs CPU, fp32
+# The whole gradient (every parameter's, concatenated), relative L2. Per
+# parameter the gradient is held to no fixed limit: moving the CPU's own
+# parameters by rounding-level noise moves single parameters' gradients by
+# up to ~1e-3 of their max abs (bilinear taps and PReLU kinks switch), so
+# that spread is measured in the run and printed beside the card's.
+STEP_GRAD_TOL = 1e-4
+STEP_STATE_TOL = 1e-6      # parameters, mu, nu, absolute
 # An index of K x N >= 2^31 elements (64-bit indices): 2^24 + 1 rows of a
 # 1024-row bf16 table, checked at its first and last rows.
 ROW_WIDE = (1024, 128, 2 ** 24 + 1, torch.bfloat16)
@@ -332,6 +396,7 @@ def main() -> int:
                 max_err[kernel.__name__] = max(max_err.get(kernel.__name__, 0.0), err)
         del x, idx, out
         check_row_gather(gen, gather_probe.SHAPES)
+        bwd_err = check_backward(gen)
 
     rng = np.random.default_rng(0)
     tex = smooth_texture(rng, 320, 512)
@@ -372,6 +437,7 @@ def main() -> int:
                 emit({f"ms_per_frame_448x256_{name}": frame_ms, "card": card})
         del model32
         per_level = sampler_probe.main()
+        per_level_bwd = sampler_probe.main_backward()
         # The main path's levels: the shared-offset student in bf16.
         shared = list(per_level["shared"]["bfloat16"].values())
         emit({"sampler_speed": {
@@ -425,6 +491,9 @@ def main() -> int:
     with Phase("eval"):
         check_eval(path_launches)
 
+    with Phase("train"):
+        train = check_train(card, path_launches)
+
     def total(rows, key):
         return sum(r[key] for r in rows)
 
@@ -446,6 +515,29 @@ def main() -> int:
         "per_level": per_level,
         "card": card,
     }]
+    bwd = list(per_level_bwd["bfloat16"].values())
+    kernels.append({
+        "name": "deformable_sample_backward",
+        "route": "cuda",
+        "source": "videoframeinterpolation_tpu_torch/kernels/csrc/deformable_sample.cu",
+        "replaces": "videoframeinterpolation_tpu/kernels/window_sample.py:158",
+        "note": ("the gradient of that kernel's function, which the JAX model takes with "
+                 "XLA's autodiff of _grouped_deformable_sample "
+                 "(videoframeinterpolation_tpu/nn/deformable_attn.py:83)"),
+        "launches": train["backward_launches"],
+        "launches_per_step": train["backward_launches"] / train["steps"],
+        "max_abs_err": bwd_err[0],
+        "max_err_over_max_abs": bwd_err[1],
+        "ms": total(bwd, "ms"),
+        "plain_ms": total(bwd, "plain_ms"),
+        "bound_ms": total(bwd, "bound_ms"),
+        "bound_by": ("bytes" if total(bwd, "bytes_ms") >= total(bwd, "ops_ms")
+                     else "operations"),
+        "library_ms": total(bwd, "library_ms"),
+        "dtype": "bfloat16",
+        "per_level": per_level_bwd,
+        "card": card,
+    })
     for name, replaces in (("row_gather", "tools/perf/pallas_gather_probe.py:11"),
                            ("lane_gather", "tools/perf/pallas_lane_gather_probe.py:14")):
         rows = probes[name]
@@ -645,6 +737,254 @@ def check_eval(path_launches: dict) -> None:
             raise AssertionError(f"eval {name}: PSNR {rec['psnr']} / SSIM {rec['ssim']} against "
                                  f"JAX's CPU fp32 {ref_psnr} / {ref_ssim}")
 
+def check_backward(gen) -> tuple[float, float]:
+    """The sampler's backward kernel at ``BACKWARD_CASES`` in fp32 and bf16,
+    at the widths the wrapper picks and every narrower width on both index
+    widths, against ``deformable_sample_backward_plain``; raises if an
+    instance never ran. Returns the largest fp32 error, absolute and
+    relative to its gradient's max abs."""
+    from videoframeinterpolation_tpu_torch.kernels import (
+        deformable_sample, deformable_sample_backward_plain)
+    from videoframeinterpolation_tpu_torch.kernels.window_sample import (
+        _index_bits, _launch_backward, _vector_bytes)
+    from videoframeinterpolation_tpu_torch.tools.perf.sampler_probe import level_inputs
+
+    reached, worst, worst_abs = set(), 0.0, 0.0
+    for name, (B2, h, w, C, G, S, scale, flow_mag) in BACKWARD_CASES.items():
+        feat, flow, res = level_inputs(gen, B2, h, w, C, G, S, scale, flow_mag)
+        if name == "integer":
+            flow, res = torch.round(flow), torch.round(res)
+        if name == "one_pixel":
+            gy, gx = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float32),
+                                    torch.arange(w, device="cuda", dtype=torch.float32),
+                                    indexing="ij")
+            flow = torch.stack([3.25 - gx, 2.5 - gy], -1).expand(B2, h, w, 2).contiguous()
+        grad_out = torch.randn((B2, S, h * w, C), generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [x.to(dtype).contiguous() for x in (feat, flow, res, grad_out)]
+            ref = deformable_sample_backward_plain(*args, G)
+            plan = (_vector_bytes(C, G, args[0].element_size(), args[0].data_ptr(),
+                                  args[3].data_ptr()), _index_bits(B2, h, w, C, G, S))
+            before = deformable_sample.backward_launches
+            checked = {plan: _launch_backward(*args, G)}
+            width = plan[0]
+            while width >= args[0].element_size():
+                for bits in (32, 64):
+                    if (width, bits) not in checked:
+                        checked[width, bits] = _launch_backward(*args, G, width, bits)
+                width //= 2
+            torch.cuda.synchronize()
+            if deformable_sample.backward_launches != before + len(checked):
+                raise AssertionError(f"backward launches not counted one per call ({name})")
+            errs = {}
+            for (width, bits), got in checked.items():
+                reached.add((str(dtype), width, bits))
+                for g, r, which in zip(got, ref, ("feat", "flow", "residual")):
+                    if dtype == torch.float32:
+                        err = (g - r).abs().max().item()
+                        worst_abs = max(worst_abs, err)
+                        scale_ = r.abs().max().item()
+                        ok = err <= BWD_FP32_TOL * scale_
+                        errs[which] = max(errs.get(which, 0.0), err / scale_ if scale_ else err)
+                    else:
+                        err, beyond, ok = bf16_backward_check(g, r)
+                        errs[which] = max(errs.get(which, 0.0), err)
+                        key = f"{which}_beyond_1_ulp"
+                        errs[key] = errs.get(key, 0) + beyond
+                    if not ok:
+                        raise AssertionError(f"backward kernel vs plain, case {name} {dtype} "
+                                             f"V={width} {bits}-bit, grad_{which}: {err}")
+            if dtype == torch.float32:
+                worst = max(worst, *errs.values())
+            emit({"case": f"backward_{name}", "dtype": str(dtype), "shape": list(res.shape),
+                  "vector_bytes": plan[0], "index_bits": plan[1], "instances": sorted(checked),
+                  ("max_err_over_max_abs" if dtype == torch.float32 else "max_err_in_ulps"):
+                  errs})
+        del feat, flow, res, grad_out, args, ref, checked
+    need = ({("torch.float32", v, b) for v in (16, 8, 4) for b in (32, 64)}
+            | {("torch.bfloat16", v, b) for v in (16, 8, 4, 2) for b in (32, 64)})
+    if need - reached:
+        raise AssertionError(f"backward instances never run: {sorted(need - reached, key=str)}")
+    emit({"backward_paths_checked": len(need), "max_abs_err_fp32": worst_abs,
+          "max_err_over_max_abs_fp32": worst})
+    torch.cuda.empty_cache()
+    return worst_abs, worst
+
+
+def _leaves(tree, prefix=""):
+    """``path -> numpy leaf`` of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def check_train(card: str, path_launches: dict) -> dict:
+    """Phase 10 (see the module docstring). Returns the recipe's backward
+    launches and its number of steps."""
+    import shutil
+
+    from videoframeinterpolation_tpu_torch.config import DAT_fast, PRESETS
+    from videoframeinterpolation_tpu_torch.interpolate import SHIPPED_STUDENT, load_model
+    from videoframeinterpolation_tpu_torch.kernels import deformable_sample
+    from videoframeinterpolation_tpu_torch.models import create_model
+    from videoframeinterpolation_tpu_torch.tools import head_to_head
+    from videoframeinterpolation_tpu_torch.tools.eval_best import build_pool
+    from videoframeinterpolation_tpu_torch.train import (
+        create_train_state, make_distill_loss_fn, read_flax_state, state_from_flax,
+        state_to_flax)
+
+    student_tree = read_flax_state(SHIPPED_STUDENT)
+    t_cfg, t_ckpt = PRESETS["DAT_fast_teacher"]
+    # (a) one fp32 step, card against CPU.
+    cfg32 = dataclasses.replace(DAT_fast, compute_dtype="float32", last_lr_decay_iter=24000,
+                                warmup_steps=500)
+    batch_np = build_pool(2, (128, 128), 42, is_train=True)
+    step = {}
+    for run in ("cuda", "cpu", "cpu_noise"):
+        device = run.partition("_")[0]
+        torch.set_num_threads((os.cpu_count() or 1) if device == "cpu" else 1)
+        teacher = load_model(dataclasses.replace(t_cfg, compute_dtype="float32"), t_ckpt,
+                             device=device)
+        state = create_train_state(create_model(cfg32, torch.float32).to(device), cfg32)
+        state_from_flax(student_tree, state)
+        if run == "cpu_noise":
+            noise = torch.Generator().manual_seed(0)
+            with torch.no_grad():
+                for prm in state.model.parameters():
+                    prm.mul_(1 + 2.0 ** -24 * torch.randn(prm.shape, generator=noise))
+        loss_fn = make_distill_loss_fn(state.model, teacher, cfg32, 1.0)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch_np.items()}
+        deformable_sample.launches = deformable_sample.backward_launches = 0
+        start = time.perf_counter()
+        total, _ = loss_fn(batch)
+        total.backward()
+        grads = {k: p.grad.detach().cpu().clone() for k, p in state.params.items()}
+        state.apply_gradients()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError("TF32 is on: the fp32 step would not compute fp32")
+            path_launches["train_step_fp32"] = deformable_sample.launches
+            path_launches["train_step_fp32_backward"] = deformable_sample.backward_launches
+        step[run] = {"loss": total.item(), "grads": grads,
+                        "tree": _leaves(state_to_flax(state)),
+                        "seconds": time.perf_counter() - start}
+        del state, teacher, loss_fn, batch, total
+    torch.set_num_threads(1)
+    on_card, cpu = step["cuda"], step["cpu"]
+    loss_err = abs(on_card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    largest = max(g.abs().max().item() for g in cpu["grads"].values())
+
+    def per_param(grads):
+        """The largest gradient error of any parameter, of its max abs
+        (floored at 1% of the largest), and that parameter."""
+        return max(((grads[k] - g).abs().max().item() / max(g.abs().max().item(),
+                                                             0.01 * largest), k)
+                   for k, g in cpu["grads"].items())
+
+    def whole(grads):
+        return (torch.cat([(grads[k] - g).flatten() for k, g in cpu["grads"].items()]).norm()
+                / torch.cat([g.flatten() for g in cpu["grads"].values()]).norm()).item()
+
+    grad_err = whole(on_card["grads"])
+    state_err = {part: float(max(np.abs(on_card["tree"][k] - v).max()
+                                 for k, v in cpu["tree"].items() if k.startswith(part)))
+                 for part in ("params/", "opt_state/0/mu/", "opt_state/0/nu/")}
+    emit({"train_step_fp32_card_vs_cpu": {
+        "loss_card": on_card["loss"], "loss_cpu": cpu["loss"], "loss_rel_err": loss_err,
+        "grad_rel_l2_err": grad_err,
+        "grad_rel_l2_cpu_under_noise": whole(step["cpu_noise"]["grads"]),
+        "grad_err_over_max_abs_per_param": per_param(on_card["grads"]),
+        "cpu_under_noise_err_over_max_abs_per_param": per_param(step["cpu_noise"]["grads"]),
+        "state_max_abs_err": state_err,
+        "launches": path_launches["train_step_fp32"],
+        "backward_launches": path_launches["train_step_fp32_backward"],
+        "card_seconds": on_card["seconds"], "cpu_seconds": cpu["seconds"]}})
+    if not (loss_err <= STEP_LOSS_REL_TOL and grad_err <= STEP_GRAD_TOL
+            and max(state_err.values()) <= STEP_STATE_TOL):
+        raise AssertionError(f"fp32 step, card vs CPU: loss {loss_err}, gradients {grad_err}, "
+                             f"state {state_err}")
+    if (path_launches["train_step_fp32"], path_launches["train_step_fp32_backward"]) != (6, 3):
+        raise AssertionError(f"fp32 step: {path_launches['train_step_fp32']} forward and "
+                             f"{path_launches['train_step_fp32_backward']} backward launches; "
+                             "expected 6 (student and teacher) and 3")
+    del step, on_card, cpu
+
+    # (b) the recipe, resumed at step 14500 for 500 steps; (c) its checkpoint.
+    out_dir = Path(tempfile.mkdtemp(prefix="vfi_train_"))
+    try:
+        args = ["--model", "DATwConstantnCv1", "--shared", "--samples", "8,8,2",
+                "--distill_from", str(t_ckpt), "--teacher_shared", "--teacher_samples", "8,16,8",
+                "--distill_w", "1.0", "--steps", "24000", "--warmup", "500", "--resume",
+                "--stop_at", "15000", "--out_dir", str(out_dir), "--device", "cuda"]
+        tag = head_to_head.result_tag(head_to_head.parse_args(args))
+        shutil.copyfile(SHIPPED_STUDENT, out_dir / f"{tag}.ckpt")
+        # The teacher's launches, read around each of its forwards.
+        teacher_launches = [0]
+        make_loss = head_to_head.make_distill_loss_fn
+
+        def counting_loss_fn(model, teacher, cfg, distill_w):
+            mark = []
+            teacher.register_forward_pre_hook(lambda *_: mark.append(deformable_sample.launches))
+            teacher.register_forward_hook(lambda *_: teacher_launches.__setitem__(
+                0, teacher_launches[0] + deformable_sample.launches - mark.pop()))
+            return make_loss(model, teacher, cfg, distill_w)
+
+        head_to_head.make_distill_loss_fn = counting_loss_fn
+        deformable_sample.launches = deformable_sample.bf16_launches = 0
+        deformable_sample.backward_launches = 0
+        try:
+            out = head_to_head.main(args)
+        finally:
+            head_to_head.make_distill_loss_fn = make_loss
+        torch.cuda.synchronize()
+        launches = {"forward": deformable_sample.launches,
+                    "bf16_forward": deformable_sample.bf16_launches,
+                    "teacher_forward": teacher_launches[0],
+                    "backward": deformable_sample.backward_launches}
+        path_launches["train_recipe"] = launches["forward"]
+        path_launches["train_recipe_backward"] = launches["backward"]
+        records = out["records"]
+        evals = [r for r in records if r["event"] == "eval"]
+        steps = out["state"].step - 14500
+        emit({"train_recipe": {"events": [r["event"] for r in records], "eval": evals,
+                               "final": records[-1], "record_15000": RECORD_15000,
+                               "steps": steps, "launches": launches,
+                               "ms_per_step": out["ms_per_step"],
+                               "peak_memory_bytes": out["peak_memory_bytes"], "card": card}})
+        if ([r["event"] for r in records] != ["resume", "eval", "stop"]
+                or records[0]["step"] != 14500 or evals[0]["step"] != 15000 or steps != 500):
+            raise AssertionError(f"recipe events {records}")
+        loss, psnr_ = evals[0]["train_loss"], evals[0]["val_psnr"]
+        if not (abs(loss - RECORD_15000["train_loss"])
+                <= TRAIN_LOSS_REL_TOL * RECORD_15000["train_loss"]
+                and abs(psnr_ - RECORD_15000["val_psnr"]) <= TRAIN_PSNR_TOL):
+            raise AssertionError(f"step 15000: train_loss {loss}, PSNR {psnr_} against the "
+                                 f"record {RECORD_15000}")
+        expect = {"backward": 3 * steps, "teacher_forward": 3 * steps,
+                  "student_forward": 3 * steps, "eval_forward": 2 * 12}
+        got = {"backward": launches["backward"], "teacher_forward": launches["teacher_forward"],
+               "student_forward": launches["bf16_forward"] - launches["teacher_forward"],
+               "eval_forward": launches["forward"] - launches["bf16_forward"]}
+        emit({"train_recipe_launches": got, "expected": expect})
+        if got != expect:
+            raise AssertionError(f"recipe launches {got}, expected {expect}")
+        disk = _leaves(read_flax_state(out_dir / f"{tag}.ckpt"))
+        mem = _leaves(state_to_flax(out["state"]))
+        same = disk.keys() == mem.keys() and all(
+            disk[k].dtype == mem[k].dtype and np.array_equal(disk[k], mem[k]) for k in mem)
+        emit({"train_checkpoint_read_back_equal": same, "leaves": len(mem)})
+        if not same:
+            raise AssertionError("the written checkpoint differs from the in-memory state")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"backward_launches": launches["backward"], "steps": steps}
+
+
 def check_row_gather(gen, probe_shapes) -> None:
     """The row gather at the probes' shapes (K = M + 5) and ``ROW_CASES``,
     through the wrapper and then on the same inputs at both index widths;
@@ -696,6 +1036,19 @@ def check_row_gather(gen, probe_shapes) -> None:
     if need - reached:
         raise AssertionError(f"row gather instances never run: {sorted(need - reached, key=str)}")
     emit({"row_gather_instances_checked": len(need)})
+
+
+def bf16_backward_check(got: torch.Tensor, ref: torch.Tensor):
+    """A bf16 gradient against its reference: ``(max ulps, elements beyond
+    BWD_BF16_ULPS, passed)``, where an element beyond it passes if within
+    BWD_FP32_TOL of the reference's max abs (a cancelling fp32 sum)."""
+    g, r = got.float(), ref.float()
+    mag = torch.maximum(g.abs(), r.abs())
+    _, exp = torch.frexp(mag)
+    ulps = (g - r).abs() / torch.ldexp(torch.ones_like(mag), exp - 8).clamp_min(2.0 ** -133)
+    beyond = ulps > BWD_BF16_ULPS
+    worst = (g - r).abs()[beyond].max().item() if beyond.any() else 0.0
+    return ulps.max().item(), int(beyond.sum()), worst <= BWD_FP32_TOL * r.abs().max().item()
 
 
 def bf16_ulps(out: torch.Tensor, ref: torch.Tensor) -> float:

@@ -10,7 +10,16 @@ multiple of 32), the row gather at both index widths (a misaligned table
 and index, more index rows than table rows) and its refusal of an index
 width the call does not fit, and one counted launch per call; and
 ``multi_t_apply`` on the card, whose frames equal the per-instant
-forward's bit for bit.
+forward's bit for bit; and the sampler's backward kernel against autograd
+through the plain version, at the student's and the teacher's level shapes
+of a training batch and at edge cases (far outside, integer coordinates,
+every sample of every query on one pixel, odd group widths), in fp32
+(each gradient within 1e-5 of its max abs: fp32 sums in another order,
+atomics in a changing order) and in bf16 (at most 1 bf16 ulp from the fp32
+gradient of the bf16 inputs, rounded once; where those fp32 sums cancel,
+so that the two orders differ by more than an ulp of the small result,
+within the fp32 limit instead), at every vector and index width, with one
+counted backward launch per call of the autograd Function.
 
 These tests need an NVIDIA card with nvcc (the kernels have no CPU mode) and
 skip without one. On the card's machine, which has no JAX, run them without
@@ -23,10 +32,11 @@ import pytest
 import torch
 
 from videoframeinterpolation_tpu_torch.kernels import (
-    deformable_sample, lane_gather, lane_gather_plain, row_gather, row_gather_plain)
+    deformable_sample, deformable_sample_backward_plain, lane_gather, lane_gather_plain,
+    row_gather, row_gather_plain)
 from videoframeinterpolation_tpu_torch.kernels.gather import _row_gather_launch
 from videoframeinterpolation_tpu_torch.kernels.window_sample import (
-    _grouped_deformable_sample, _index_bits, _launch, _vector_bytes)
+    _grouped_deformable_sample, _index_bits, _launch, _launch_backward, _vector_bytes)
 
 pytestmark = pytest.mark.cuda
 
@@ -217,3 +227,98 @@ def test_multi_t_apply_equals_the_per_instant_forward_on_the_card(gen):
         for k, t in enumerate(ts):
             assert torch.equal(frames[k], model(x0, x1, torch.full((1, 1, 1, 1), t,
                                                                    device="cuda")))
+
+
+# (B2, H, W, C, G, S, residual scale, flow magnitude): the levels of a
+# training batch (8 pairs of 128x128, B2 16) of the student (S 8/8/2) and
+# the teacher (S 8/16/8; its lv3 is the student's), and edge cases.
+BACKWARD_CASES = {
+    "train_student_lv3": (16, 16, 16, 72, 1, 8, 2.0, 4.0),
+    "train_student_lv2": (16, 32, 32, 72, 1, 8, 4.0, 4.0),
+    "train_student_lv1": (16, 64, 64, 72, 1, 2, 8.0, 4.0),
+    "train_teacher_lv2": (16, 32, 32, 72, 1, 16, 4.0, 4.0),
+    "train_teacher_lv1": (16, 64, 64, 72, 1, 8, 8.0, 4.0),
+    "far_outside": (2, 9, 13, 40, 8, 3, 30.0, 1e4),
+    "cg9": (1, 9, 13, 72, 8, 3, 30.0, 4.0),
+    "odd_cg7": (2, 11, 17, 21, 3, 5, 3.0, 4.0),
+    "integer": (2, 16, 16, 72, 1, 8, 2.0, 3.0),
+    "one_pixel": (2, 16, 16, 16, 1, 8, 0.0, 0.0),
+}
+BWD_FP32_TOL = 1e-5
+
+
+def _backward_case(gen, name, dtype):
+    """``feat, flow, residual, grad_out`` of a case, in ``dtype``."""
+    B2, H, W, C, G, S, scale, flow_mag = BACKWARD_CASES[name]
+    feat, flow, res = _inputs(gen, B2, H, W, C, G, S, scale, flow_mag)
+    if name == "integer":
+        flow, res = torch.round(flow), torch.round(res)
+    if name == "one_pixel":   # every sample of every query at (3.25, 2.5)
+        gy, gx = torch.meshgrid(torch.arange(H, device="cuda", dtype=torch.float32),
+                                torch.arange(W, device="cuda", dtype=torch.float32),
+                                indexing="ij")
+        flow = torch.stack([3.25 - gx, 2.5 - gy], -1).expand(B2, H, W, 2).contiguous()
+    grad_out = torch.randn((B2, S, H * W, C), generator=gen, device="cuda")
+    return tuple(x.to(dtype).contiguous() for x in (feat, flow, res, grad_out))
+
+
+def _bf16_close(out, ref):
+    """Each element within 1 bf16 ulp, or within the fp32 limit of the max abs."""
+    mag = torch.maximum(out.abs(), ref.abs())
+    _, exp = torch.frexp(mag)
+    ulp = torch.ldexp(torch.ones_like(mag), exp - 8).clamp_min(2.0 ** -133)
+    diff = (out - ref).abs()
+    return bool(((diff <= ulp) | (diff <= BWD_FP32_TOL * ref.abs().max())).all())
+
+
+def _check_backward(got, feat, flow, res, grad_out):
+    ref = deformable_sample_backward_plain(feat, flow, res, grad_out, res.shape[3])
+    for g, r, name in zip(got, ref, ("feat", "flow", "residual")):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        if g.dtype == torch.float32:
+            err = (g - r).abs().max().item()
+            assert err <= BWD_FP32_TOL * r.abs().max().item(), (name, err)
+        else:
+            assert _bf16_close(g.float(), r.float()), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(BACKWARD_CASES))
+def test_backward_kernel_matches_autograd_through_the_plain_version(gen, name, dtype):
+    feat, flow, res, grad_out = _backward_case(gen, name, dtype)
+    got = _launch_backward(feat, flow, res, grad_out, res.shape[3])
+    torch.cuda.synchronize()
+    _check_backward(got, feat, flow, res, grad_out)
+
+
+@pytest.mark.parametrize("index_bits", [32, 64])
+@pytest.mark.parametrize("dtype,vector_bytes", [
+    (torch.float32, 16), (torch.float32, 8), (torch.float32, 4),
+    (torch.bfloat16, 16), (torch.bfloat16, 8), (torch.bfloat16, 4), (torch.bfloat16, 2)])
+def test_every_backward_vector_and_index_width_matches(gen, dtype, vector_bytes, index_bits):
+    feat, flow, res, grad_out = _backward_case(gen, "train_student_lv3", dtype)
+    got = _launch_backward(feat, flow, res, grad_out, 1, vector_bytes, index_bits)
+    torch.cuda.synchronize()
+    _check_backward(got, feat, flow, res, grad_out)
+
+
+def test_a_backward_width_the_call_does_not_fit_is_refused(gen):
+    feat, flow, res, grad_out = _backward_case(gen, "cg9", torch.bfloat16)
+    before = deformable_sample.backward_launches
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _launch_backward(feat, flow, res, grad_out, 8, 4, 32)
+    assert deformable_sample.backward_launches == before
+
+
+def test_autograd_on_the_card_runs_the_backward_kernel_once(gen):
+    """``deformable_sample`` on CUDA tensors that need a gradient: one
+    forward and one backward launch, and the backward kernel's gradients."""
+    feat, flow, res, grad_out = _backward_case(gen, "train_student_lv2", torch.bfloat16)
+    leaves = [x.detach().requires_grad_() for x in (feat, flow, res)]
+    before = (deformable_sample.launches, deformable_sample.backward_launches)
+    out = deformable_sample(*leaves, 1)
+    out.backward(grad_out)
+    torch.cuda.synchronize()
+    assert (deformable_sample.launches, deformable_sample.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    _check_backward([x.grad for x in leaves], feat, flow, res, grad_out)

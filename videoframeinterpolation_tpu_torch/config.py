@@ -1,6 +1,8 @@
 """Typed model configuration (counterpart of ``videoframeinterpolation_tpu/config``).
 
-Only the fields the serving path reads are kept. There is no YAML parser:
+Only the fields the serving path and the quality study's training recipe
+(``tools/head_to_head.py``) read are kept, with the JAX defaults. There is
+no YAML parser:
 configurations are presets written out in Python, and a test holds each
 preset against the JAX ``Config`` loaded from its YAML file.
 :data:`PRESETS` names each preset with the committed checkpoint it serves.
@@ -30,6 +32,16 @@ class Config:
     dat_movement_nf: Optional[Sequence[int]] = None
     dat_ref_offset_units: bool = False
     compute_dtype: str = "bfloat16"   # "bfloat16" | "float32"
+    # Training (JAX Config:33,99-110): AdamW over the warmup-cosine schedule
+    # (train/state.py, train/schedule.py) and the flow-distillation weight of
+    # dat_loss. grad_clip is not ported: anything but None raises.
+    start_lr: float = 2.0e-4
+    end_lr: float = 1.0e-5
+    weight_decay: float = 1.0e-4
+    last_lr_decay_iter: int = 600_000
+    warmup_steps: int = 2000
+    distill_lambda: Optional[float] = 0.01
+    grad_clip: Optional[float] = None
 
 
 # configs/DAT_fast.yaml: the shipped flagship (shared offsets, 8/8/2 samples).

@@ -1,4 +1,4 @@
-"""Flax parameter trees -> PyTorch ``state_dict`` for the port's modules.
+"""Flax parameter trees <-> PyTorch parameters of the port's modules.
 
 The port's modules carry the flax module names (``feature_encoder``,
 ``proj_res.block0``, ``movement_res.conv2_prelu``, ...), so a flax path
@@ -16,6 +16,8 @@ The port's modules carry the flax module names (``feature_encoder``,
 Which rule applies is read from the module that owns the parameter. Every
 leaf must be consumed and every parameter of the model filled, each with
 its shape checked; anything left over or missing raises.
+:func:`params_to_flax` is the reverse map. Both carry any tree shaped like
+the parameters, such as AdamW's moments (``mu``, ``nu``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,52 @@ def _convert(module: nn.Module, leaf: str, value: np.ndarray) -> np.ndarray:
     if isinstance(module, nn.Linear):
         return value.transpose(1, 0)
     raise ValueError(f"no layout rule for a kernel of {type(module).__name__}")
+
+
+def _convert_back(module: nn.Module, leaf: str, value: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`_convert`."""
+    if leaf != "kernel":
+        return value
+    if isinstance(module, nn.ConvTranspose2d):
+        return value[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    if isinstance(module, nn.Conv2d):
+        return value.transpose(2, 3, 1, 0)
+    if isinstance(module, nn.Linear):
+        return value.transpose(1, 0)
+    raise ValueError(f"no layout rule for a kernel of {type(module).__name__}")
+
+
+def params_to_flax(tensors: Mapping[str, torch.Tensor], model: nn.Module) -> dict:
+    """The flax tree ``{"params": {...}}`` of ``tensors``, a mapping from
+    each of ``model``'s parameter names to a tensor of that parameter's
+    shape (the parameters themselves, or a moment of the optimizer), as
+    float32 numpy arrays in flax's layout, keys sorted at every level as
+    flax writes them. Every parameter must be given, and nothing else."""
+    expected = dict(model.named_parameters())
+    if set(tensors) != set(expected):
+        raise KeyError(f"names differ from the model's parameters: missing "
+                       f"{sorted(set(expected) - set(tensors))}, extra "
+                       f"{sorted(set(tensors) - set(expected))}")
+    modules = dict(model.named_modules())
+    flat = {}
+    for key, value in tensors.items():
+        if tuple(value.shape) != tuple(expected[key].shape):
+            raise ValueError(f"{key!r}: shape {tuple(value.shape)}, expected "
+                             f"{tuple(expected[key].shape)}")
+        owner, _, leaf = key.rpartition(".")
+        module = modules[owner]
+        if leaf == "weight" and isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            leaf = "kernel"
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        flat[(*owner.split("."), leaf) if owner else (leaf,)] = np.ascontiguousarray(
+            _convert_back(module, leaf, arr))
+    tree: dict = {}
+    for path in sorted(flat):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = flat[path]
+    return {"params": tree}
 
 
 def params_from_flax(tree: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:

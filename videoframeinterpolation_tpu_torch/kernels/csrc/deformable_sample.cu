@@ -61,6 +61,30 @@
 // (so out never reaches device memory), and a shared-memory window of the
 // features (flow is unbounded, so a window needs a path for taps outside
 // it; whether it beats this direct gather is not measured).
+//
+// The backward pass (training; the JAX model differentiates
+// _grouped_deformable_sample with XLA's autodiff, nn/deformable_attn.py:83):
+// given g = d loss / d out, one thread per (b, s, q, g) recomputes the
+// coordinates, taps and weights exactly as the forward does and loops over
+// the group's Cg channels, reading g and the four taps as V-byte chunks:
+//
+//   grad_feat[b, tap, c]     += w_tap * m_tap * g[c]        (fp32 atomicAdd)
+//   d out / d x = sum_c g[c] * ((1-wy) (v01 - v00) + wy (v11 - v10))
+//   d out / d y = sum_c g[c] * ((1-wx) (v10 - v00) + wx (v11 - v01))
+//
+// with a masked tap's value taken as 0 (ops/interp.py:175-187 masks the
+// weights; the derivative of a masked weight's term is then 0 too). The
+// coordinate gradient is grad_residual[b, q, g, s] (one thread owns it: no
+// atomics) and, summed over (G, S), grad_flow[b, q] (fp32 atomicAdd), since
+// coords = q + (residual + flow). The fp32 buffers are rounded once to the
+// inputs' dtype by the wrapper; in bf16 every product and sum is fp32 and
+// each result is rounded once, where JAX's autodiff rounds in bf16 along
+// the way. Atomics add in an order that changes from run to run, so the
+// sums are not bit-reproducible. What bounds it: the atomics into
+// grad_feat (4 * Cg per sample), served by L2; the bytes bound counts each
+// input read once and each output written once. Threads are ordered with q
+// fastest for a fixed (b, s), so a warp reads neighbouring rows of g and
+// adds into neighbouring pixels' taps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,6 +138,7 @@ template <> struct Elem<float> {
     w[i] = __float_as_uint(v);
   }
   static __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ float from_float(float v) { return v; }
 };
 template <> struct Elem<__nv_bfloat16> {
   static __device__ __forceinline__ float get(const unsigned* w, int i) {
@@ -124,6 +149,9 @@ template <> struct Elem<__nv_bfloat16> {
   }
   static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
     return __bfloat162float(__ldg(p));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 from_float(float v) {
+    return __float2bfloat16_rn(v);
   }
 };
 
@@ -273,6 +301,151 @@ int launch(const void* feat, const void* flow, const void* residual, void* out,
   }
 }
 
+template <typename T, int V, typename I>
+__global__ void __launch_bounds__(kThreads)
+deformable_sample_bwd_kernel(const T* __restrict__ feat, const T* __restrict__ flow,
+                             const T* __restrict__ residual, const T* __restrict__ grad_out,
+                             float* __restrict__ grad_feat, T* __restrict__ grad_residual,
+                             float* __restrict__ grad_flow, int B2, int H, int W, int C, int G,
+                             int S) {
+  constexpr int kElems = V / (int)sizeof(T);
+  constexpr int kWords = (V + 3) / 4;
+  const I HW = (I)H * W;
+  const int Cg = C / G;
+  const long long t64 = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t64 >= (long long)B2 * S * H * W * G) return;
+  const I t = (I)t64;
+  const I row = t / G;                           // (b * S + s) * HW + q
+  const int g = (int)(t - row * G);
+  const I bs = row / HW;
+  const I q = row - bs * HW;
+  const I b = bs / S;
+  const int s = (int)(bs - b * S);
+  const int qy = (int)(q / W);
+  const int qx = (int)(q - (I)qy * W);
+  const I pix = b * HW + q;
+
+  const float fx = Elem<T>::load(flow + 2 * pix);
+  const float fy = Elem<T>::load(flow + 2 * pix + 1);
+  const I r = ((pix * G + g) * S + s) * 2;
+  const float x = __fadd_rn((float)qx, __fadd_rn(Elem<T>::load(residual + r), fx));
+  const float y = __fadd_rn((float)qy, __fadd_rn(Elem<T>::load(residual + r + 1), fy));
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  const float wx = __fsub_rn(x, x0f);
+  const float wy = __fsub_rn(y, y0f);
+  const bool vx0 = x0f >= 0.f && x0f <= (float)(W - 1);
+  const bool vx1 = x0f >= -1.f && x0f <= (float)(W - 2);
+  const bool vy0 = y0f >= 0.f && y0f <= (float)(H - 1);
+  const bool vy1 = y0f >= -1.f && y0f <= (float)(H - 2);
+  const bool v00 = vx0 && vy0, v01 = vx1 && vy0;
+  const bool v10 = vx0 && vy1, v11 = vx1 && vy1;
+
+  float gx = 0.f, gy = 0.f;
+  if (v00 || v01 || v10 || v11) {
+    const float ux = __fsub_rn(1.f, wx);
+    const float uy = __fsub_rn(1.f, wy);
+    const float w00 = __fmul_rn(ux, uy);
+    const float w01 = __fmul_rn(wx, uy);
+    const float w10 = __fmul_rn(ux, wy);
+    const float w11 = __fmul_rn(wx, wy);
+    // As in the forward, a tap's address is formed only when it is valid.
+    const I p00 = ((I)(int)y0f * W + (int)x0f) * C + (I)g * Cg;
+    const I row_step = (I)W * C;
+    const T* fb = feat + b * HW * C;
+    float* gf = grad_feat + b * HW * C;
+    const T* go = grad_out + row * C + (I)g * Cg;
+    for (int c = 0; c < Cg; c += kElems) {
+      unsigned gw[kWords];
+      load_chunk<V>(go + c, gw);
+      unsigned a00[kWords] = {}, a01[kWords] = {}, a10[kWords] = {}, a11[kWords] = {};
+      if (v00) load_chunk<V>(fb + p00 + c, a00);
+      if (v01) load_chunk<V>(fb + p00 + C + c, a01);
+      if (v10) load_chunk<V>(fb + p00 + row_step + c, a10);
+      if (v11) load_chunk<V>(fb + p00 + row_step + C + c, a11);
+#pragma unroll
+      for (int i = 0; i < kElems; ++i) {
+        const float gv = Elem<T>::get(gw, i);
+        const float f00 = Elem<T>::get(a00, i), f01 = Elem<T>::get(a01, i);
+        const float f10 = Elem<T>::get(a10, i), f11 = Elem<T>::get(a11, i);
+        gx += gv * (uy * (f01 - f00) + wy * (f11 - f10));
+        gy += gv * (ux * (f10 - f00) + wx * (f11 - f01));
+        if (v00) atomicAdd(gf + p00 + c + i, w00 * gv);
+        if (v01) atomicAdd(gf + p00 + C + c + i, w01 * gv);
+        if (v10) atomicAdd(gf + p00 + row_step + c + i, w10 * gv);
+        if (v11) atomicAdd(gf + p00 + row_step + C + c + i, w11 * gv);
+      }
+    }
+    atomicAdd(grad_flow + 2 * pix, gx);
+    atomicAdd(grad_flow + 2 * pix + 1, gy);
+  }
+  grad_residual[r] = Elem<T>::from_float(gx);
+  grad_residual[r + 1] = Elem<T>::from_float(gy);
+}
+
+template <typename T, int V>
+int launch_bwd_v(const void* feat, const void* flow, const void* residual,
+                 const void* grad_out, void* grad_feat, void* grad_residual, void* grad_flow,
+                 int B2, int H, int W, int C, int G, int S, int index_bits, unsigned blocks,
+                 cudaStream_t stream) {
+  const T* f = static_cast<const T*>(feat);
+  const T* fl = static_cast<const T*>(flow);
+  const T* r = static_cast<const T*>(residual);
+  const T* go = static_cast<const T*>(grad_out);
+  float* gf = static_cast<float*>(grad_feat);
+  T* gr = static_cast<T*>(grad_residual);
+  float* gfl = static_cast<float*>(grad_flow);
+  if (index_bits == 32)
+    deformable_sample_bwd_kernel<T, V, int><<<blocks, kThreads, 0, stream>>>(
+        f, fl, r, go, gf, gr, gfl, B2, H, W, C, G, S);
+  else
+    deformable_sample_bwd_kernel<T, V, long long><<<blocks, kThreads, 0, stream>>>(
+        f, fl, r, go, gf, gr, gfl, B2, H, W, C, G, S);
+  return (int)cudaGetLastError();
+}
+
+// The forward's refusals, with grad_out's alignment in place of out's.
+template <typename T>
+int launch_bwd(const void* feat, const void* flow, const void* residual, const void* grad_out,
+               void* grad_feat, void* grad_residual, void* grad_flow, int B2, int H, int W,
+               int C, int G, int S, int vec_bytes, int index_bits, void* stream) {
+  if (B2 <= 0 || H <= 0 || W <= 0 || C <= 0 || G <= 0 || S <= 0 || C % G != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long esize = (long long)sizeof(T);
+  const long long group_bytes = (long long)(C / G) * esize;
+  const uintptr_t align = (uintptr_t)feat | (uintptr_t)grad_out;
+  if (vec_bytes < esize || vec_bytes > 16 || (vec_bytes & (vec_bytes - 1)) != 0 ||
+      group_bytes % vec_bytes != 0 || align % (uintptr_t)vec_bytes != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long pixels = (long long)B2 * H * W;
+  const long long out_elems = pixels * S * C;
+  const long long res_elems = pixels * G * S * 2;
+  const long long largest = out_elems > res_elems ? out_elems : res_elems;
+  if (!(index_bits == 64 || (index_bits == 32 && largest < (1LL << 31))))
+    return (int)cudaErrorInvalidValue;
+  const long long threads = pixels * S * G;
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (vec_bytes) {
+    case 16:
+      return launch_bwd_v<T, 16>(feat, flow, residual, grad_out, grad_feat, grad_residual,
+                                 grad_flow, B2, H, W, C, G, S, index_bits, (unsigned)blocks, st);
+    case 8:
+      return launch_bwd_v<T, 8>(feat, flow, residual, grad_out, grad_feat, grad_residual,
+                                grad_flow, B2, H, W, C, G, S, index_bits, (unsigned)blocks, st);
+    case 4:
+      return launch_bwd_v<T, 4>(feat, flow, residual, grad_out, grad_feat, grad_residual,
+                                grad_flow, B2, H, W, C, G, S, index_bits, (unsigned)blocks, st);
+    default:
+      if constexpr (sizeof(T) == 2)
+        return launch_bwd_v<T, 2>(feat, flow, residual, grad_out, grad_feat, grad_residual,
+                                  grad_flow, B2, H, W, C, G, S, index_bits, (unsigned)blocks,
+                                  st);
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int vfi_deformable_sample_f32(const void* feat, const void* flow,
@@ -289,4 +462,26 @@ extern "C" int vfi_deformable_sample_bf16(const void* feat, const void* flow,
                                           int index_bits, void* stream) {
   return launch<__nv_bfloat16>(feat, flow, residual, out, B2, H, W, C, G, S, vec_bytes,
                                index_bits, stream);
+}
+
+// grad_feat and grad_flow: fp32 buffers of feat's and flow's shapes, zeroed
+// by the caller; grad_residual: residual's shape and dtype.
+extern "C" int vfi_deformable_sample_bwd_f32(const void* feat, const void* flow,
+                                             const void* residual, const void* grad_out,
+                                             void* grad_feat, void* grad_residual,
+                                             void* grad_flow, int B2, int H, int W, int C,
+                                             int G, int S, int vec_bytes, int index_bits,
+                                             void* stream) {
+  return launch_bwd<float>(feat, flow, residual, grad_out, grad_feat, grad_residual, grad_flow,
+                           B2, H, W, C, G, S, vec_bytes, index_bits, stream);
+}
+
+extern "C" int vfi_deformable_sample_bwd_bf16(const void* feat, const void* flow,
+                                              const void* residual, const void* grad_out,
+                                              void* grad_feat, void* grad_residual,
+                                              void* grad_flow, int B2, int H, int W, int C,
+                                              int G, int S, int vec_bytes, int index_bits,
+                                              void* stream) {
+  return launch_bwd<__nv_bfloat16>(feat, flow, residual, grad_out, grad_feat, grad_residual,
+                                   grad_flow, B2, H, W, C, G, S, vec_bytes, index_bits, stream);
 }

@@ -9,7 +9,11 @@ function directly, for any residual, in ``csrc/deformable_sample.cu``.
 
 :func:`deformable_sample` launches the kernel on a CUDA tensor and runs
 :func:`deformable_sample_plain` on a CPU tensor; it never falls back from
-one to the other.
+one to the other. Where a gradient is asked for on the card it goes through
+:class:`DeformableSample`, whose backward is the hand-written
+``vfi_deformable_sample_bwd_*`` kernel of the same source; on the CPU,
+autograd differentiates the plain version, as XLA differentiates the JAX
+model's ``_grouped_deformable_sample``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from .build import load_library
 
 _KERNELS = {torch.float32: "vfi_deformable_sample_f32",
             torch.bfloat16: "vfi_deformable_sample_bf16"}
+_BACKWARD_KERNELS = {torch.float32: "vfi_deformable_sample_bwd_f32",
+                     torch.bfloat16: "vfi_deformable_sample_bwd_bf16"}
 
 
 def _grouped_deformable_sample(feat: torch.Tensor, ref_offsets: torch.Tensor,
@@ -55,6 +61,20 @@ def deformable_sample_plain(feat: torch.Tensor, flow: torch.Tensor,
     JAX model's ``res + flow`` that it then casts to fp32."""
     return _grouped_deformable_sample(
         feat, residual.float() + flow.float()[:, :, :, None, None, :], n_groups)
+
+
+def deformable_sample_backward_plain(feat: torch.Tensor, flow: torch.Tensor,
+                                     residual: torch.Tensor, grad_out: torch.Tensor,
+                                     n_groups: int):
+    """The backward kernel's function in plain PyTorch (its oracle):
+    autograd through :func:`deformable_sample_plain` on the inputs and
+    ``grad_out`` taken to fp32, each gradient rounded once to its input's
+    dtype. Returns ``(grad_feat, grad_flow, grad_residual)``."""
+    with torch.enable_grad():
+        leaves = [x.detach().float().requires_grad_() for x in (feat, flow, residual)]
+        out = deformable_sample_plain(*leaves, n_groups)
+        grads = torch.autograd.grad(out, leaves, grad_out.float())
+    return tuple(g.to(x.dtype) for g, x in zip(grads, (feat, flow, residual)))
 
 
 def _check(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Tensor,
@@ -128,6 +148,62 @@ def _launch(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Tensor, n_gr
     return out
 
 
+def _launch_backward(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Tensor,
+                     grad_out: torch.Tensor, n_groups: int, vector_bytes: int | None = None,
+                     index_bits: int | None = None):
+    """Launch ``vfi_deformable_sample_bwd_*`` on checked CUDA tensors
+    (``grad_out`` contiguous, ``(B2, S, H*W, C)`` in ``feat``'s dtype) and
+    count the launch. Returns ``(grad_feat, grad_flow, grad_residual)`` in
+    the inputs' dtype: ``grad_feat`` and ``grad_flow`` are summed with fp32
+    atomics and rounded once, ``grad_residual`` is each thread's fp32 sum
+    rounded once. Widths as in :func:`_launch` (``grad_out`` takes ``out``'s
+    place)."""
+    B2, H, W, C = feat.shape
+    S = residual.shape[4]
+    if tuple(grad_out.shape) != (B2, S, H * W, C) or grad_out.dtype != feat.dtype:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} {grad_out.dtype} does not match "
+                         f"the output {(B2, S, H * W, C)} {feat.dtype}")
+    if grad_out.device != feat.device or not grad_out.is_contiguous():
+        raise ValueError("grad_out must be contiguous and on feat's device")
+    grad_feat = torch.zeros((B2, H, W, C), dtype=torch.float32, device=feat.device)
+    grad_flow = torch.zeros((B2, H, W, 2), dtype=torch.float32, device=feat.device)
+    grad_residual = torch.empty_like(residual)
+    if vector_bytes is None:
+        vector_bytes = _vector_bytes(C, n_groups, feat.element_size(), feat.data_ptr(),
+                                     grad_out.data_ptr())
+    if index_bits is None:
+        index_bits = _index_bits(B2, H, W, C, n_groups, S)
+    name = _BACKWARD_KERNELS[feat.dtype]
+    fn = getattr(load_library(), name)
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(feat.data_ptr(), flow.data_ptr(), residual.data_ptr(), grad_out.data_ptr(),
+                 grad_feat.data_ptr(), grad_residual.data_ptr(), grad_flow.data_ptr(),
+                 B2, H, W, C, n_groups, S, vector_bytes, index_bits, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed to launch ({vector_bytes}-byte vectors, "
+                           f"{index_bits}-bit indices): cudaError {err}")
+    deformable_sample.backward_launches += 1
+    return grad_feat.to(feat.dtype), grad_flow.to(flow.dtype), grad_residual
+
+
+class DeformableSample(torch.autograd.Function):
+    """The sampler on the card with a gradient: forward :func:`_launch`,
+    backward :func:`_launch_backward`, each a hand-written kernel."""
+
+    @staticmethod
+    def forward(ctx, feat, flow, residual, n_groups):
+        ctx.save_for_backward(feat, flow, residual)
+        ctx.n_groups = n_groups
+        return _launch(feat, flow, residual, n_groups)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        feat, flow, residual = ctx.saved_tensors
+        grads = _launch_backward(feat, flow, residual, grad_out.contiguous(), ctx.n_groups)
+        return (*grads, None)
+
+
 def deformable_sample(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Tensor,
                       n_groups: int) -> torch.Tensor:
     """Zeros-padded bilinear samples of ``feat`` at ``q + (residual + flow)``.
@@ -145,16 +221,23 @@ def deformable_sample(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Te
     current stream, with the vector width and index width chosen for this
     call (:func:`_vector_bytes`, :func:`_index_bits`), and adds one to
     ``deformable_sample.launches`` (and, for bf16, to
-    ``deformable_sample.bf16_launches``); on a CPU tensor it runs
-    :func:`deformable_sample_plain`.
+    ``deformable_sample.bf16_launches``); where autograd records the call,
+    it goes through :class:`DeformableSample`, whose backward launches
+    ``vfi_deformable_sample_bwd_*`` and adds one to
+    ``deformable_sample.backward_launches``. On a CPU tensor it runs
+    :func:`deformable_sample_plain` (differentiable by autograd).
     """
     _check(feat, flow, residual, n_groups)
     if feat.device.type == "cpu":
         return deformable_sample_plain(feat, flow, residual, n_groups)
     if feat.device.type != "cuda":
         raise ValueError(f"unsupported device {feat.device}")
+    if torch.is_grad_enabled() and (feat.requires_grad or flow.requires_grad
+                                    or residual.requires_grad):
+        return DeformableSample.apply(feat, flow, residual, n_groups)
     return _launch(feat, flow, residual, n_groups)
 
 
 deformable_sample.launches = 0
 deformable_sample.bf16_launches = 0
+deformable_sample.backward_launches = 0

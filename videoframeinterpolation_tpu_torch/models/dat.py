@@ -8,8 +8,11 @@
   1/2   -> deformable attention level 1 (nG=8, nH=8, scale 8, no flow)
   1/1   PixelShuffle generator -> clamp(rgb + mean, 0, 1)
 
-Inference only in this slice: ``forward`` returns the frame, and the
-``train=True`` flow pyramids wait for the training slice.
+``forward(..., train=True)`` also returns the flow pyramids the training
+loss reads, and :func:`dat_loss` is that loss (JAX ``models/dat.py:207-236``).
+The model computes in ``compute_dtype`` whatever the dtype of its
+parameters: fp32 master parameters when it trains, parameters cast once
+to the compute dtype when it serves.
 """
 
 from __future__ import annotations
@@ -17,6 +20,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops import (
+    charbonnier_ada,
+    charbonnier_l1,
+    get_robust_weight,
+    scale_resize,
+    ternary_loss,
+)
 from ..nn import (
     BasicResPixelShuffleGenerator,
     CrossDeformableAttentionBlock,
@@ -32,9 +42,10 @@ class DATwConstantnC(nn.Module):
                  mlp_ratio: float = 2.0, window_sampling: bool = False,
                  shared_offsets: bool | tuple = False, n_samples: tuple = (8, 16, 32),
                  attn_strides: tuple = (1, 1, 1), movement_nf: tuple | None = None,
-                 ref_offset_units: bool = False):
+                 ref_offset_units: bool = False, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.nf = nf
+        self.compute_dtype = compute_dtype
         so = shared_offsets
         so3, so2, so1 = (so, so, so) if isinstance(so, bool) else tuple(so)
         ns3, ns2, ns1 = n_samples
@@ -61,8 +72,8 @@ class DATwConstantnC(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The compute dtype: that of the parameters."""
-        return self.lv4_to_lv3.weight.dtype
+        """The compute dtype (the parameters may be wider: fp32 master weights)."""
+        return self.compute_dtype
 
     def encode(self, x0: torch.Tensor, x1: torch.Tensor):
         """The t-invariant stage: normalization (in the input's dtype) and the
@@ -73,9 +84,12 @@ class DATwConstantnC(nn.Module):
         feats = self.feature_encoder(torch.cat([x0n, x1n], dim=0))
         return feats, mean
 
-    def decode(self, feats, mean: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def decode(self, feats, mean: torch.Tensor, t: torch.Tensor, train: bool = False):
         """The t-dependent stage: query building, the deformable
-        cross-attention pyramid and the pixel generator."""
+        cross-attention pyramid and the pixel generator. With ``train`` it
+        returns ``(frame, intermediates)``: ``pred_ft0`` and ``pred_ft1``,
+        each level's flows resized to full resolution (x2, x4, x8, x16 for
+        levels 1-4), their magnitudes left in the level's pixel units."""
         nf = self.nf
         B = feats[0].shape[0] // 2
         (f0_1, f1_1), (f0_2, f1_2), (f0_3, f1_3), (f0_4, f1_4) = (
@@ -91,10 +105,48 @@ class DATwConstantnC(nn.Module):
         attended_2, ft0_1, ft1_1 = self.dat_lv2(query_2, f0_2, f1_2, ft0_2, ft1_2)
         query_1 = self.lv2_to_lv1(attended_2)
         attended_1 = self.dat_lv1(query_1, f0_1, f1_1, ft0_1, ft1_1)
-        return self.pixel_generator(attended_1, mean).float()
+        img_pred = self.pixel_generator(attended_1, mean).float()
+        if not train:
+            return img_pred
+        levels = ((ft0_1, ft1_1, 2.0), (ft0_2, ft1_2, 4.0), (ft0_3, ft1_3, 8.0),
+                  (ft0_4, ft1_4, 16.0))
+        return img_pred, {"pred_ft0": [scale_resize(f0, s) for f0, _, s in levels],
+                          "pred_ft1": [scale_resize(f1, s) for _, f1, s in levels]}
 
-    def forward(self, x0: torch.Tensor, x1: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, x0: torch.Tensor, x1: torch.Tensor, t: torch.Tensor,
+                train: bool = False):
         """``x0, x1 (B, H, W, 3)`` in [0, 1] with H, W divisible by 16,
-        ``t (B, 1, 1, 1)``; returns the ``(B, H, W, 3)`` fp32 frame at t."""
+        ``t (B, 1, 1, 1)``; returns the ``(B, H, W, 3)`` fp32 frame at t
+        and, with ``train``, the flow pyramids of :meth:`decode`."""
         feats, mean = self.encode(x0, x1)
-        return self.decode(feats, mean, t)
+        return self.decode(feats, mean, t, train=train)
+
+
+def dat_loss(img_pred: torch.Tensor, intermediates: dict, batch: dict,
+             distill_lambda: float | None = 0.01):
+    """The flagship's training loss: Charbonnier L1 and the census loss on
+    the frame, plus, where the batch has pseudo-GT flows (``f0x``, ``f1x``),
+    ``distill_lambda`` times the robust-weighted Charbonnier of levels 2-4's
+    flows against them, the weights taken from level 1's (detached) flow.
+    Returns ``(total, log)`` with JAX's log keys."""
+    xt = batch["xt"]
+    l1 = charbonnier_l1(img_pred - xt)
+    census = ternary_loss(img_pred, xt)
+    total = l1 + census
+    log = {"l1_loss": l1, "census_loss": census}
+    if distill_lambda is not None and "f0x" in batch:
+        ft0, ft1 = batch["f0x"], batch["f1x"]
+        p0 = [f.float() for f in intermediates["pred_ft0"]]
+        p1 = [f.float() for f in intermediates["pred_ft1"]]
+        w0 = get_robust_weight(p0[0], ft0, beta=0.3)
+        w1 = get_robust_weight(p1[0], ft1, beta=0.3)
+        distill = (
+            charbonnier_ada(p0[1] - ft0, w0) + charbonnier_ada(p1[1] - ft1, w1)
+            + charbonnier_ada(p0[2] - ft0, w0) + charbonnier_ada(p1[2] - ft1, w1)
+            + charbonnier_ada(p0[3] - ft0, w0) + charbonnier_ada(p1[3] - ft1, w1)
+        )
+        distill = distill_lambda * distill
+        total = total + distill
+        log["flow_loss"] = distill
+    log["total_loss"] = total
+    return total, log

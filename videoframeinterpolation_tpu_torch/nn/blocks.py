@@ -6,63 +6,124 @@ memory, so no layout copy is made. Module and parameter names are those of
 the flax modules, so checkpoints map across mechanically
 (``interop/flax_params.py``).
 
-Every layer computes in the dtype of its parameters and input (fp32, or
-bf16 after ``create_model`` cast the parameters). As in flax's ``Conv``,
-``ConvTranspose`` and ``Dense``, the bias is added after the product has
-been rounded to that dtype, so a bf16 layer rounds where the JAX layer does.
+Every layer computes in the dtype of its input, and casts its parameters
+to it at each call, as flax does: a model trained in bf16 keeps fp32
+master parameters and the gradient flows back through the cast. A served
+model has its parameters cast once at load (``create_model``), and the
+cast is then a no-op. As in flax's ``Conv``, ``ConvTranspose`` and
+``Dense``, the bias is added after the product has been rounded to that
+dtype, so a bf16 layer rounds where the JAX layer does.
+
+Initialisation follows the JAX package's rules (its ``nn/blocks.py:23-26``):
+each layer's kernel is drawn by the rule its JAX counterpart names
+(:func:`torch_conv_init` by default, :func:`res_scaled_init` in residual
+blocks, :func:`zero_init` for the offset and mask predictors), its bias is
+zero and a PReLU starts at 0.25. The fan-in is the JAX kernel's
+(``kh * kw * in`` for both convolutions, ``in`` for a dense layer).
+The draws come from torch's generator, so they are not JAX's numbers.
 """
 
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 
-class Conv2d(nn.Conv2d):
+def _fan_in(module: nn.Module) -> int:
+    """The fan-in of the JAX kernel that ``module``'s weight stands for."""
+    w = module.weight
+    if isinstance(module, nn.ConvTranspose2d):   # (I, O, kh, kw)
+        return w.shape[0] * w.shape[2] * w.shape[3]
+    return w[0].numel()                          # (O, I, kh, kw) or (O, I)
+
+
+def torch_conv_init(w: torch.Tensor, fan_in: int) -> None:
+    """torch's default conv init, ``U(+-1/sqrt(fan_in))``: JAX's
+    ``variance_scaling(1/3, "fan_in", "uniform")``."""
+    bound = 1.0 / math.sqrt(fan_in)
+    nn.init.uniform_(w, -bound, bound)
+
+
+def res_scaled_init(w: torch.Tensor, fan_in: int) -> None:
+    """0.1-scaled kaiming normal, ``N(0, 0.02 / fan_in)``: JAX's
+    ``variance_scaling(0.02, "fan_in", "normal")``."""
+    nn.init.normal_(w, 0.0, math.sqrt(0.02 / fan_in))
+
+
+def zero_init(w: torch.Tensor, fan_in: int) -> None:
+    nn.init.zeros_(w)
+
+
+Init = Callable[[torch.Tensor, int], None]
+
+
+class _Initialised:
+    """Kernel drawn by ``self.kernel_init`` (set before the base class's
+    ``__init__`` runs its ``reset_parameters``), bias zero."""
+
+    kernel_init: Init = staticmethod(torch_conv_init)
+
+    def reset_parameters(self) -> None:
+        self.kernel_init(self.weight, _fan_in(self))
+        nn.init.zeros_(self.bias)
+
+
+class Conv2d(_Initialised, nn.Conv2d):
     """``nn.Conv2d`` on ``(B, H, W, C)`` tensors."""
 
+    def __init__(self, *args, kernel_init: Init = torch_conv_init, **kwargs):
+        self.kernel_init = kernel_init
+        super().__init__(*args, **kwargs)
+
     def product(self, x: torch.Tensor) -> torch.Tensor:
-        """The convolution without its bias, in the compute dtype."""
-        return self._conv_forward(x.permute(0, 3, 1, 2), self.weight, None).permute(0, 2, 3, 1)
+        """The convolution without its bias, in ``x``'s dtype."""
+        return self._conv_forward(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+                                  None).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.product(x) + self.bias
+        return self.product(x) + self.bias.to(x.dtype)
 
 
-class ConvTranspose2d(nn.ConvTranspose2d):
+class ConvTranspose2d(_Initialised, nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` on ``(B, H, W, C)`` tensors."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, None, self.stride,
-                               self.padding, self.output_padding, self.groups, self.dilation)
-        return y.permute(0, 2, 3, 1) + self.bias
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), None,
+                               self.stride, self.padding, self.output_padding, self.groups,
+                               self.dilation)
+        return y.permute(0, 2, 3, 1) + self.bias.to(x.dtype)
 
 
-class Dense(nn.Linear):
+class Dense(_Initialised, nn.Linear):
     """``nn.Linear`` over the last axis, bias added after the product."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight) + self.bias
+        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
 
 
 class PReLU(nn.Module):
-    """Per-channel PReLU as ``max(x, 0) + alpha * min(x, 0)``."""
+    """Per-channel PReLU as ``max(x, 0) + alpha * min(x, 0)``, with
+    ``torch.maximum``/``torch.minimum`` so that at ``x == 0`` each side gets
+    half the gradient, as ``jnp.maximum``/``jnp.minimum`` give it."""
 
     def __init__(self, features: int, init_value: float = 0.25):
         super().__init__()
         self.alpha = nn.Parameter(torch.full((features,), init_value))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.clamp_min(x, 0) + self.alpha.to(x.dtype) * torch.clamp_max(x, 0)
+        zero = x.new_zeros(())
+        return torch.maximum(x, zero) + self.alpha.to(x.dtype) * torch.minimum(x, zero)
 
 
 def conv(in_features: int, features: int, kernel_size: int = 3, stride: int = 1,
-         padding: int = 1) -> Conv2d:
+         padding: int = 1, kernel_init: Init = torch_conv_init) -> Conv2d:
     """Conv2d with symmetric padding and a bias."""
-    return Conv2d(in_features, features, kernel_size, stride, padding)
+    return Conv2d(in_features, features, kernel_size, stride, padding, kernel_init=kernel_init)
 
 
 def conv_transpose_x2(in_features: int, features: int) -> ConvTranspose2d:
@@ -88,9 +149,9 @@ class ResBlock(nn.Module):
 
     def __init__(self, features: int):
         super().__init__()
-        self.conv1 = conv(features, features)
+        self.conv1 = conv(features, features, kernel_init=res_scaled_init)
         self.prelu = PReLU(features)
-        self.conv2 = conv(features, features)
+        self.conv2 = conv(features, features, kernel_init=res_scaled_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.conv2(self.prelu(self.conv1(x)))

@@ -6,7 +6,7 @@ import torch
 from torch import nn
 
 from ..ops import bwarp, deform_conv2d
-from .blocks import ConvPReLU, conv
+from .blocks import ConvPReLU, conv, zero_init
 
 
 class DeformableConv2d(nn.Module):
@@ -15,7 +15,9 @@ class DeformableConv2d(nn.Module):
 
     Offsets are ``2 * tanh(res) + flow`` in the ``(B, H, W, G, K*K, (dx, dy))``
     layout, the mask is a sigmoid, and ``om_out``'s channels are ordered
-    ``G x 3 x K*K`` (dx residuals, dy residuals, mask).
+    ``G x 3 x K*K`` (dx residuals, dy residuals, mask). ``om_out`` starts at
+    zero and the grouped ``weight`` at ``U(+-1/sqrt(Cin/G * K*K))``, the
+    per-group fan-in, as in JAX (``nn/dcn_layer.py:56,123``).
     """
 
     def __init__(self, in_features: int, features: int, movement_features: int,
@@ -26,8 +28,10 @@ class DeformableConv2d(nn.Module):
         self.offset_flow_conv = conv(movement_features, 2)
         self.om1 = ConvPReLU(in_features + movement_features + 2, in_features)
         self.om2 = ConvPReLU(in_features, in_features)
-        self.om_out = conv(in_features, G * 3 * KK)
-        self.weight = nn.Parameter(torch.zeros(G, KK, in_features // G, features // G))
+        self.om_out = conv(in_features, G * 3 * KK, kernel_init=zero_init)
+        bound = (1.0 / (in_features // G * KK)) ** 0.5
+        self.weight = nn.Parameter(
+            torch.empty(G, KK, in_features // G, features // G).uniform_(-bound, bound))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor, movement_feat: torch.Tensor):
@@ -37,7 +41,7 @@ class DeformableConv2d(nn.Module):
         # fp32 (bwarp's flow, deform_conv2d's offsets), XLA takes that add in
         # fp32 without rounding it to the compute dtype first; so does this.
         flow = self.offset_flow_conv.product(movement_feat)
-        bias = self.offset_flow_conv.bias
+        bias = self.offset_flow_conv.bias.to(flow.dtype)
         offset_flow = flow + bias
         feat_t_from_x = bwarp(x, flow.float() + bias.float())
         h = torch.cat([feat_t_from_x, movement_feat, offset_flow], dim=-1)

@@ -19,7 +19,7 @@ from torch import nn
 from ..kernels.window_sample import _grouped_deformable_sample, deformable_sample
 from ..ops import bwarp, scale_resize
 from .blocks import (ConvPReLU, Dense, FeedForward, HalfChannelConv5ResBlock, conv,
-                     conv_transpose_x2)
+                     conv_transpose_x2, zero_init)
 
 __all__ = ["SampleAttention", "CrossDeformableAttentionBlock", "_grouped_deformable_sample"]
 
@@ -81,7 +81,7 @@ class CrossDeformableAttentionBlock(nn.Module):
         self.movement_conv1 = ConvPReLU(2 * c + 2, 2 * c)
         self.movement_conv2 = ConvPReLU(2 * c, c)
         self.movement_res = HalfChannelConv5ResBlock(c, c // 2)
-        self.conv_res_offset = conv(c, self.n_offset_sets * n_samples * 2)
+        self.conv_res_offset = conv(c, self.n_offset_sets * n_samples * 2, kernel_init=zero_init)
         if pred_res_flow:
             self.conv_res_flow = conv_transpose_x2(c, 2)
         self.attn = SampleAttention(c, out_features, 2 * n_samples, n_heads)

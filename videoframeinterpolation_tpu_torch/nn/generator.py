@@ -11,7 +11,9 @@ from .blocks import PReLU, ResBlocks, conv
 
 class BasicResPixelShuffleGenerator(nn.Module):
     """N res blocks -> conv to 4*nf -> PixelShuffle(2) -> HR conv -> RGB;
-    the output is ``clamp(rgb + mean, 0, 1)``."""
+    the output is ``clamp(rgb + mean, 0, 1)``, written as ``min(max(., 0), 1)``
+    so that a value on a bound passes half its gradient, as ``jnp.clip``
+    does."""
 
     def __init__(self, nf: int, n_res_blocks: int):
         super().__init__()
@@ -27,4 +29,5 @@ class BasicResPixelShuffleGenerator(nn.Module):
         h = self.prelu1(pixel_shuffle(h, 2))
         h = self.prelu2(self.hrconv(h))
         h = self.conv_last(h)
-        return torch.clamp(h + mean.to(h.dtype), 0.0, 1.0)
+        h = h + mean.to(h.dtype)
+        return torch.minimum(torch.maximum(h, h.new_zeros(())), h.new_ones(()))

@@ -4,7 +4,9 @@ NHWC throughout, coordinates in pixel units with ``align_corners=True``
 semantics (pixel ``i`` sits at coordinate ``i``). Written with floor,
 gather and weights as the JAX function is, so the two agree tap for tap:
 
-  * ``border`` clamps the continuous coordinate before the taps;
+  * ``border`` clamps the continuous coordinate before the taps, as
+    ``min(max(x, 0), W - 1)``, so that a coordinate on a bound passes half
+    its gradient, as ``jnp.clip`` does;
   * ``zeros`` masks each tap by ``0 <= xi <= W-1`` and ``0 <= yi <= H-1``.
 """
 
@@ -37,8 +39,8 @@ def grid_sample(img: torch.Tensor, coords: torch.Tensor,
     x = coords[..., 0].float()
     y = coords[..., 1].float()
     if padding_mode == "border":
-        x = x.clamp(0.0, W - 1)
-        y = y.clamp(0.0, H - 1)
+        x = torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), W - 1))
+        y = torch.minimum(torch.maximum(y, y.new_zeros(())), y.new_full((), H - 1))
 
     x0f = torch.floor(x)
     y0f = torch.floor(y)

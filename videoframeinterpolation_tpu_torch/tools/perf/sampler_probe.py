@@ -1,6 +1,6 @@
 """The DAT levels' deformable sampler on the card, at the level shapes the port's paths launch.
 
-    python -m videoframeinterpolation_tpu_torch.tools.perf.sampler_probe
+    python -m videoframeinterpolation_tpu_torch.tools.perf.sampler_probe [--backward]
 
 Times :func:`...kernels.window_sample.deformable_sample` at the three levels
 of each served configuration: the shared-offset student
@@ -17,6 +17,16 @@ once, over 3.35 TB/s; operations: 4 multiplies and 3 adds per output
 element at the fp32 rate) and the kernel's share of it. Needs a CUDA
 device, and raises without one. Timing launches are not counted in
 ``deformable_sample.launches``.
+
+With ``--backward`` it times the backward kernel (``_launch_backward``,
+its fp32 buffers and the rounding of them included) at the student's
+three levels of a training batch (``TRAIN_LEVELS``: 8 pairs of 128x128,
+B2 16, S 8/8/2), beside autograd through the plain version,
+``F.grid_sample``'s backward on the same work (``aten::grid_sampler_2d_backward``,
+both gradients) and the bound: bytes, each input (feat, flow, residual,
+grad_out) read once and each gradient written once in the inputs' dtype;
+operations, 22 per sample and channel (14 for the coordinate gradient, 4
+products and 4 adds into the taps) at the fp32 rate.
 """
 
 from __future__ import annotations
@@ -27,7 +37,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from ...kernels.window_sample import deformable_sample, deformable_sample_plain
+from ...kernels.window_sample import (_launch_backward, deformable_sample,
+                                      deformable_sample_backward_plain, deformable_sample_plain)
 from .timing import bytes_bound_ms, device_marginal_ms, loop_ms, require_card
 
 FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
@@ -51,6 +62,10 @@ def _levels(B2: int, H: int, W: int, gs) -> tuple:
 LEVEL_SETS = {**{kind: _levels(2, 256, 448, gs) for kind, gs in CONFIG_LEVELS.items()},
               **{f"eval_{kind}": _levels(16, 128, 128, gs)
                  for kind, gs in CONFIG_LEVELS.items()}}
+
+
+# The student's levels of a training batch (8 pairs of 128x128, B2 16).
+TRAIN_LEVELS = _levels(16, 128, 128, CONFIG_LEVELS["shared"])
 
 
 def level_inputs(gen: torch.Generator, B2: int, h: int, w: int, C: int, G: int, S: int,
@@ -102,6 +117,63 @@ def level_times(feat: torch.Tensor, flow: torch.Tensor, res: torch.Tensor,
             "share_of_bound": bound_ms / ms, "library_over_kernel": library_ms / ms}
 
 
+def backward_level_times(feat: torch.Tensor, flow: torch.Tensor, res: torch.Tensor,
+                         grad_out: torch.Tensor) -> dict:
+    """One level's backward: the kernel (device clock), autograd through the
+    plain version, ``F.grid_sample``'s backward on the same work (device
+    clock) and the bound."""
+    B2, h, w, C = feat.shape
+    G, S = res.shape[3], res.shape[4]
+    calls = deformable_sample.backward_launches
+    ms = device_marginal_ms(lambda: _launch_backward(feat, flow, res, grad_out, G), n_hi=17)
+    deformable_sample.backward_launches = calls
+    plain_ms = loop_ms(lambda: deformable_sample_backward_plain(feat, flow, res, grad_out, G),
+                       10) / 10
+
+    gy, gx = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float32),
+                            torch.arange(w, device="cuda", dtype=torch.float32),
+                            indexing="ij")
+    coords = (torch.stack([gx, gy], -1)[None, :, :, None, None]
+              + (res.float() + flow.float()[:, :, :, None, None]))
+    coords = coords.permute(0, 3, 4, 1, 2, 5).reshape(B2 * G, S * h, w, 2)
+    grid = torch.stack([coords[..., 0] * (2.0 / (w - 1)) - 1.0,
+                        coords[..., 1] * (2.0 / (h - 1)) - 1.0], -1).to(feat.dtype).contiguous()
+    inp = feat.reshape(B2, h, w, G, C // G).permute(0, 3, 4, 1, 2).reshape(
+        B2 * G, C // G, h, w).contiguous()
+    gout = grad_out.reshape(B2, S, h, w, G, C // G).permute(0, 4, 5, 1, 2, 3).reshape(
+        B2 * G, C // G, S * h, w).contiguous()
+    library_ms = device_marginal_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        gout, inp, grid, 0, 0, True, [True, True]), n_hi=17)
+
+    nbytes = feat.element_size() * 2 * (feat.numel() + flow.numel() + res.numel()) \
+        + grad_out.element_size() * grad_out.numel()
+    bytes_ms = bytes_bound_ms(nbytes)
+    ops_ms = 22 * B2 * S * h * w * C / FP32_FLOPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    return {"shape": [B2, h, w, C, G, S], "dtype": str(feat.dtype).removeprefix("torch."),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bytes": nbytes,
+            "share_of_bound": bound_ms / ms, "library_over_kernel": library_ms / ms}
+
+
+def main_backward() -> dict:
+    """``{"bfloat16" | "float32": {level: row}}`` of the backward kernel at
+    ``TRAIN_LEVELS``."""
+    card = require_card()
+    print(card, flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows: dict = {}
+    for name, B2, h, w, G, S, scale in TRAIN_LEVELS:
+        fp32 = level_inputs(gen, B2, h, w, C, G, S, scale)
+        grad_out = torch.randn((B2, S, h * w, C), generator=gen, device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            row = backward_level_times(*(x.to(dtype) for x in (*fp32, grad_out)))
+            rows.setdefault(row["dtype"], {})[name] = row
+            print(json.dumps({"backward_level": name, **row, "card": card}), flush=True)
+        del fp32, grad_out
+    return rows
+
+
 def main() -> dict:
     """``{"shared" | "non_shared": {"bfloat16" | "float32": {level: row}}}``."""
     card = require_card()
@@ -121,4 +193,9 @@ def main() -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if "--backward" in sys.argv[1:]:
+        main_backward()
+    else:
+        main()

@@ -1,15 +1,17 @@
-"""Read flax msgpack checkpoints without flax or msgpack.
+"""Read and write flax msgpack checkpoints without flax or msgpack.
 
 Counterpart of the msgpack branch of
-``videoframeinterpolation_tpu/train/checkpoint.py:restore_teacher_params``:
-a ``.ckpt`` / ``.best.ckpt`` file written by ``flax.serialization.to_bytes``
-holds a TrainState ``{"step", "params", "opt_state"}`` as one msgpack map.
-Each ndarray is a msgpack ext object of type 1 whose payload is itself the
+``videoframeinterpolation_tpu/train/checkpoint.py:restore_teacher_params``
+and of ``flax.serialization.to_bytes`` as ``tools/quality/head_to_head.py``
+writes its checkpoints: a ``.ckpt`` / ``.best.ckpt`` file holds a
+TrainState ``{"step", "params", "opt_state"}`` as one msgpack map. Each
+ndarray is a msgpack ext object of type 1 whose payload is itself the
 msgpack array ``(shape, dtype name, raw C-order bytes)``.
 
-The decoder below covers the msgpack types such a file uses: maps, arrays,
-str, bin, ints, floats, nil, bool and ext. It uses the standard library and
-numpy only.
+The decoder covers the msgpack types such a file uses: maps, arrays, str,
+bin, ints, floats, nil, bool and ext; the encoder writes maps with str
+keys, numpy arrays and non-negative ints, in the smallest encoding of
+each, as the msgpack package does. Standard library and numpy only.
 """
 
 from __future__ import annotations
@@ -148,3 +150,87 @@ def read_flax_msgpack(path: str | Path) -> dict:
     """Return the ``params`` tree of a flax msgpack TrainState file (see
     :func:`read_flax_state`)."""
     return read_flax_state(path)["params"]
+
+
+def _pack_uint(out: bytearray, n: int, codes: tuple) -> None:
+    """A length or count after the first of ``codes`` (8-, 16- and 32-bit
+    forms; ``None`` where the type has no such form) wide enough."""
+    for code, fmt in zip(codes, (">B", ">H", ">I")):
+        if code is not None and n < 1 << (8 * struct.calcsize(fmt)):
+            out += bytes([code]) + struct.pack(fmt, n)
+            return
+    raise ValueError(f"length {n} does not fit a msgpack 32-bit field")
+
+
+def _pack(out: bytearray, v) -> None:
+    if isinstance(v, dict):
+        n = len(v)
+        if n < 16:
+            out.append(0x80 | n)
+        else:
+            _pack_uint(out, n, (None, 0xDE, 0xDF))
+        for k, x in v.items():
+            if not isinstance(k, str):
+                raise TypeError(f"map key {k!r} is not a str")
+            _pack(out, k)
+            _pack(out, x)
+    elif isinstance(v, (list, tuple)):
+        if len(v) < 16:
+            out.append(0x90 | len(v))
+        else:
+            _pack_uint(out, len(v), (None, 0xDC, 0xDD))
+        for x in v:
+            _pack(out, x)
+    elif isinstance(v, str):
+        b = v.encode("utf-8")
+        if len(b) < 32:
+            out.append(0xA0 | len(b))
+        else:
+            _pack_uint(out, len(b), (0xD9, 0xDA, 0xDB))
+        out += b
+    elif isinstance(v, bytes):
+        _pack_uint(out, len(v), (0xC4, 0xC5, 0xC6))
+        out += v
+    elif isinstance(v, (int, np.integer)) and not isinstance(v, bool):
+        v = int(v)   # an array's dimension: a TrainState writes no negative int
+        if not 0 <= v < 1 << 64:
+            raise ValueError(f"int {v} is not a msgpack uint")
+        if v < 128:
+            out.append(v)
+        else:
+            for code, fmt in ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")):
+                if v < 1 << (8 * struct.calcsize(fmt)):
+                    out += bytes([code]) + struct.pack(fmt, v)
+                    return
+    elif isinstance(v, np.ndarray):
+        arr = np.asarray(v, order="C")   # (ascontiguousarray would make a 0-d array 1-d)
+        payload = bytearray()
+        _pack(payload, (list(arr.shape), arr.dtype.name, arr.tobytes()))
+        n = len(payload)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            out.append(fixed[n])
+        else:
+            _pack_uint(out, n, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", _EXT_NDARRAY)
+        out += payload
+    else:
+        raise TypeError(f"cannot write a {type(v).__name__} to a flax checkpoint")
+
+
+def flax_msgpack_bytes(state: dict) -> bytes:
+    """``state`` (nested dicts with str keys, numpy arrays and ints) as the
+    msgpack bytes ``flax.serialization.to_bytes`` gives for the same tree."""
+    out = bytearray()
+    _pack(out, state)
+    return bytes(out)
+
+
+def write_flax_state(path: str | Path, state: dict) -> None:
+    """Write ``state`` (``{"step", "params", "opt_state"}``, as
+    :func:`read_flax_state` returns it) to ``path`` atomically: to a
+    ``.tmp`` file beside it, then renamed, as ``head_to_head.py`` does."""
+    path = Path(path)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    tmp.write_bytes(flax_msgpack_bytes(state))
+    tmp.replace(path)

@@ -1,0 +1,69 @@
+"""Training step (counterpart of ``videoframeinterpolation_tpu/train/step.py``).
+
+The JAX package compiles forward, loss, backward and the AdamW update into
+one XLA program per step (or per chunk of steps, ``lax.scan``). PyTorch
+runs them eagerly, one step per call of :func:`train_step`; a batch is a
+dict of tensors on the model's device (``x0``, ``x1``, ``xt``, ``t`` and,
+for flow distillation, ``f0x``, ``f1x``). Only the flagship's recipes are
+ported: :func:`make_loss_fn` and :func:`make_distill_loss_fn` for
+``DATwConstantnC``. The log keys are JAX's.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..config import Config
+from ..models.dat import DATwConstantnC, dat_loss
+from ..ops import charbonnier_l1
+from .state import TrainState
+
+LossFn = Callable[[dict], "tuple[torch.Tensor, dict]"]
+
+
+def make_loss_fn(model: torch.nn.Module, cfg: Config) -> LossFn:
+    """``loss_fn(batch) -> (loss, log)`` of the model's own recipe."""
+    if not isinstance(model, DATwConstantnC):
+        raise ValueError(f"no loss ported for model {type(model).__name__}")
+
+    def loss_fn(batch):
+        pred, inter = model(batch["x0"], batch["x1"], batch["t"], train=True)
+        return dat_loss(pred, inter, batch, cfg.distill_lambda)
+
+    return loss_fn
+
+
+def make_distill_loss_fn(model: torch.nn.Module, teacher: torch.nn.Module, cfg: Config,
+                         distill_w: float) -> LossFn:
+    """The model's recipe plus output-space teacher distillation,
+    ``distill_w * Charbonnier(pred - pred_teacher)``. The teacher is frozen:
+    it runs its serving forward under ``torch.no_grad``."""
+    if not isinstance(model, DATwConstantnC):
+        raise ValueError(f"no distillation recipe for model {type(model).__name__}")
+
+    def loss_fn(batch):
+        pred, inter = model(batch["x0"], batch["x1"], batch["t"], train=True)
+        total, log = dat_loss(pred, inter, batch, cfg.distill_lambda)
+        with torch.no_grad():
+            t_pred = teacher(batch["x0"], batch["x1"], batch["t"])
+        t_loss = distill_w * charbonnier_l1(pred - t_pred)
+        total = total + t_loss
+        log = dict(log)
+        log["teacher_loss"] = t_loss
+        log["total_loss"] = total
+        return total, log
+
+    return loss_fn
+
+
+def train_step(state: TrainState, loss_fn: LossFn, batch: dict) -> dict:
+    """Loss, backward and one AdamW update of ``state`` (in place).
+    Returns the log with every value detached (still on the device, so a
+    step does not wait for the card)."""
+    state.model.train()
+    total, log = loss_fn(batch)
+    total.backward()
+    state.apply_gradients()
+    return {k: v.detach() for k, v in log.items()}
