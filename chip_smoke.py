@@ -30,8 +30,13 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      coordinates, every sample of every query on one pixel, odd group
      widths), in fp32 (each gradient within 1e-5 of its max abs) and bf16
      (at most 1 ulp from the fp32 gradient of the bf16 inputs, rounded
-     once, or, where the fp32 sums cancel, within the fp32 limit), at the
-     widths the wrapper picks, every narrower width and both index widths;
+     once, or, where the fp32 sums cancel, within the fp32 limit), on its
+     planned path (``grad_feat`` summed in shared memory) and on the global
+     path forced, each at the widths the wrapper picks, every narrower
+     width and both index widths, with ``grad_residual`` and ``grad_flow``
+     equal bit for bit over two launches, after the card's figures that
+     the backward's plan reads (``kernels/build.py``) are held to the
+     card's device properties;
      the row and lane gathers at every shape of
      their probes and at an odd shape (equal, max |diff| 0); the row
      gather also at ``ROW_CASES`` (the largest probe shape in bf16, ragged
@@ -81,14 +86,19 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      TrainState for 500 steps to step 15000 on the 768-scene pool: the
      step-15000 ``train_loss`` within 5% of the record's and the held-out
      PSNR within 0.2 dB of it (``RECORD_15000``), with 3 student forward, 3
-     teacher forward and 3 backward sampler launches per step; ms per step
+     teacher forward and 3 backward sampler launches per step (the backward
+     all on its shared-memory path); ms per step
      and peak memory; (c) the ``.ckpt`` it wrote, read back by the port's
      reader, equals the final in-memory state leaf for leaf.
 
 Each path's sampler launches (forward and backward) are counted from 0
 just before it runs and read just after; the kernels line gives them per
-path. Phase 5 also times the backward kernel at the student's training
-levels (``sampler_probe.main_backward``).
+path, and the backward's also per backward path. Phase 5 also times the
+backward at the student's training levels on its planned path and on the
+global path (``sampler_probe.main_backward``), and fails unless one call
+on each path issues the device operations ``BWD_DEVICE_OPS`` gives it (2 on
+the shared-memory path), as the profiler records them; a profiler that
+records none fails too.
 
 The serving entry point's ``load_model`` switches TF32 off (cuDNN
 convolutions and matmuls), so an fp32 model computes in full fp32 on the
@@ -180,6 +190,12 @@ BWD_FP32_TOL = 1e-5   # of each gradient's max abs: fp32 sums in other orders, a
 # sums differ by more than a bf16 ulp of the result, and the element is held
 # to BWD_FP32_TOL of the gradient's max abs instead.
 BWD_BF16_ULPS = 1.0
+# Device operations one backward call issues, by path and dtype: the feature
+# and the coordinate kernels; on the global path also its fp32 buffer's
+# zero-fill and, in bf16, the buffer's cast. (The first design issued 5: two
+# zero-fills, its kernel and two casts.)
+BWD_DEVICE_OPS = {"smem": {"bfloat16": 2, "float32": 2},
+                  "global": {"bfloat16": 4, "float32": 3}}
 # Phase 10: the shipped student's curve at step 15000
 # (tools/quality/results/DATwConstantnCv1_shared_s8-8-2_distill1.0T8-16-8_24k.jsonl),
 # the mean loss of steps 14501-15000 and the held-out PSNR.
@@ -450,6 +466,17 @@ def main() -> int:
                                     for dtype, rows in by_dtype.items()
                                     for name, r in rows.items()},
             "card": card}})
+        bwd_ops, want_ops = {}, {}
+        for dtype, rows in per_level_bwd.items():
+            for name, r in rows.items():
+                for run, path in (("planned", r["plan"]["path"]), ("global", "global")):
+                    key = f"{dtype}_{name}_{run}_{path}"
+                    bwd_ops[key] = len(r["device_ops"][run])
+                    want_ops[key] = BWD_DEVICE_OPS[path][dtype]
+        emit({"backward_device_ops_per_call": bwd_ops})
+        if bwd_ops != want_ops:
+            raise AssertionError(f"backward device operations per call {bwd_ops}, "
+                                 f"expected {want_ops}")
 
     probes = {}
     with Phase("gather"):
@@ -526,9 +553,14 @@ def main() -> int:
                  "(videoframeinterpolation_tpu/nn/deformable_attn.py:83)"),
         "launches": train["backward_launches"],
         "launches_per_step": train["backward_launches"] / train["steps"],
+        "paths": {"smem": "grad_feat summed in shared memory (planned at every training level)",
+                  "global": "grad_feat summed with global atomics (forced in phase 2 and timed "
+                            "in phase 5)"},
+        "launches_per_backward_path": train["backward_path_launches"],
         "max_abs_err": bwd_err[0],
         "max_err_over_max_abs": bwd_err[1],
         "ms": total(bwd, "ms"),
+        "global_ms": total(bwd, "global_ms"),
         "plain_ms": total(bwd, "plain_ms"),
         "bound_ms": total(bwd, "bound_ms"),
         "bound_by": ("bytes" if total(bwd, "bytes_ms") >= total(bwd, "ops_ms")
@@ -737,18 +769,43 @@ def check_eval(path_launches: dict) -> None:
             raise AssertionError(f"eval {name}: PSNR {rec['psnr']} / SSIM {rec['ssim']} against "
                                  f"JAX's CPU fp32 {ref_psnr} / {ref_ssim}")
 
+def check_card_figures() -> None:
+    """The card's figures that ``kernels/build.py`` compiles the kernels
+    with and the backward's plan reads, against what the card reports (each
+    figure that this PyTorch's device properties carry; the SM count at
+    least)."""
+    from videoframeinterpolation_tpu_torch.kernels import build
+
+    props = torch.cuda.get_device_properties(0)
+    want = {"multi_processor_count": build.SMS,
+            "max_threads_per_multi_processor": build.THREADS_PER_SM,
+            "shared_memory_per_multiprocessor": build.SMEM_PER_SM,
+            "shared_memory_per_block_optin": build.SMEM_PER_BLOCK}
+    got = {k: getattr(props, k) for k in want if hasattr(props, k)}
+    emit({"card_figures": got, "build": want})
+    if "multi_processor_count" not in got or any(got[k] != want[k] for k in got):
+        raise AssertionError(f"the card's figures {got} are not the build's {want}")
+
+
 def check_backward(gen) -> tuple[float, float]:
-    """The sampler's backward kernel at ``BACKWARD_CASES`` in fp32 and bf16,
-    at the widths the wrapper picks and every narrower width on both index
-    widths, against ``deformable_sample_backward_plain``; raises if an
-    instance never ran. Returns the largest fp32 error, absolute and
-    relative to its gradient's max abs."""
+    """The sampler's backward at ``BACKWARD_CASES`` in fp32 and bf16, on the
+    path ``_backward_plan`` picks (shared memory at every case) and on the
+    global path forced, each at the widths the wrapper picks and every
+    narrower width on both index widths, against
+    ``deformable_sample_backward_plain``. ``grad_residual`` and
+    ``grad_flow`` (summed without atomics) must be equal bit for bit over
+    two launches of the planned path; ``grad_feat`` (summed with atomics on
+    either path) is held to the tolerance only. Raises if a (path, dtype,
+    width, index width) instance never ran, or if the card's figures are not
+    those the plan reads (:func:`check_card_figures`). Returns the largest
+    fp32 error, absolute and relative to its gradient's max abs."""
     from videoframeinterpolation_tpu_torch.kernels import (
         deformable_sample, deformable_sample_backward_plain)
     from videoframeinterpolation_tpu_torch.kernels.window_sample import (
-        _index_bits, _launch_backward, _vector_bytes)
+        BackwardPlan, _backward_plan, _launch_backward, _vector_bytes)
     from videoframeinterpolation_tpu_torch.tools.perf.sampler_probe import level_inputs
 
+    check_card_figures()
     reached, worst, worst_abs = set(), 0.0, 0.0
     for name, (B2, h, w, C, G, S, scale, flow_mag) in BACKWARD_CASES.items():
         feat, flow, res = level_inputs(gen, B2, h, w, C, G, S, scale, flow_mag)
@@ -763,22 +820,32 @@ def check_backward(gen) -> tuple[float, float]:
         for dtype in (torch.float32, torch.bfloat16):
             args = [x.to(dtype).contiguous() for x in (feat, flow, res, grad_out)]
             ref = deformable_sample_backward_plain(*args, G)
-            plan = (_vector_bytes(C, G, args[0].element_size(), args[0].data_ptr(),
-                                  args[3].data_ptr()), _index_bits(B2, h, w, C, G, S))
+            plan = _backward_plan(B2, h, w, C, G, S)
+            width0 = _vector_bytes(C, G, args[0].element_size(), args[0].data_ptr(),
+                                   args[3].data_ptr())
             before = deformable_sample.backward_launches
-            checked = {plan: _launch_backward(*args, G)}
-            width = plan[0]
-            while width >= args[0].element_size():
-                for bits in (32, 64):
-                    if (width, bits) not in checked:
-                        checked[width, bits] = _launch_backward(*args, G, width, bits)
-                width //= 2
+            planned = _launch_backward(*args, G)
+            again = _launch_backward(*args, G)
+            checked = {(plan.path, width0, plan.index_bits): planned}
+            for path in dict.fromkeys((plan.path, "global")):
+                forced = plan if path == plan.path else BackwardPlan("global", 0, 0, plan.index_bits)
+                width = width0
+                while width >= args[0].element_size():
+                    for bits in (32, 64):
+                        if (path, width, bits) not in checked:
+                            checked[path, width, bits] = _launch_backward(
+                                *args, G, width, bits, forced)
+                    width //= 2
             torch.cuda.synchronize()
-            if deformable_sample.backward_launches != before + len(checked):
+            if deformable_sample.backward_launches != before + len(checked) + 1:
                 raise AssertionError(f"backward launches not counted one per call ({name})")
+            repro = torch.equal(planned[1], again[1]) and torch.equal(planned[2], again[2])
+            if not repro:
+                raise AssertionError(f"backward, case {name} {dtype}: grad_flow or "
+                                     "grad_residual differ between two launches")
             errs = {}
-            for (width, bits), got in checked.items():
-                reached.add((str(dtype), width, bits))
+            for (path, width, bits), got in checked.items():
+                reached.add((path, str(dtype), width, bits))
                 for g, r, which in zip(got, ref, ("feat", "flow", "residual")):
                     if dtype == torch.float32:
                         err = (g - r).abs().max().item()
@@ -792,17 +859,19 @@ def check_backward(gen) -> tuple[float, float]:
                         key = f"{which}_beyond_1_ulp"
                         errs[key] = errs.get(key, 0) + beyond
                     if not ok:
-                        raise AssertionError(f"backward kernel vs plain, case {name} {dtype} "
+                        raise AssertionError(f"backward vs plain, case {name} {dtype} {path} "
                                              f"V={width} {bits}-bit, grad_{which}: {err}")
             if dtype == torch.float32:
                 worst = max(worst, *errs.values())
             emit({"case": f"backward_{name}", "dtype": str(dtype), "shape": list(res.shape),
-                  "vector_bytes": plan[0], "index_bits": plan[1], "instances": sorted(checked),
+                  "plan": plan._asdict(), "vector_bytes": width0,
+                  "instances": sorted(checked), "coordinate_gradients_reproducible": repro,
                   ("max_err_over_max_abs" if dtype == torch.float32 else "max_err_in_ulps"):
                   errs})
-        del feat, flow, res, grad_out, args, ref, checked
-    need = ({("torch.float32", v, b) for v in (16, 8, 4) for b in (32, 64)}
-            | {("torch.bfloat16", v, b) for v in (16, 8, 4, 2) for b in (32, 64)})
+        del feat, flow, res, grad_out, args, ref, checked, planned, again
+    need = {(path, dt, v, b) for path in ("smem", "global") for b in (32, 64)
+            for dt, widths in (("torch.float32", (16, 8, 4)), ("torch.bfloat16", (16, 8, 4, 2)))
+            for v in widths}
     if need - reached:
         raise AssertionError(f"backward instances never run: {sorted(need - reached, key=str)}")
     emit({"backward_paths_checked": len(need), "max_abs_err_fp32": worst_abs,
@@ -937,6 +1006,8 @@ def check_train(card: str, path_launches: dict) -> dict:
         head_to_head.make_distill_loss_fn = counting_loss_fn
         deformable_sample.launches = deformable_sample.bf16_launches = 0
         deformable_sample.backward_launches = 0
+        deformable_sample.backward_path_launches.update(
+            dict.fromkeys(deformable_sample.backward_path_launches, 0))
         try:
             out = head_to_head.main(args)
         finally:
@@ -945,7 +1016,8 @@ def check_train(card: str, path_launches: dict) -> dict:
         launches = {"forward": deformable_sample.launches,
                     "bf16_forward": deformable_sample.bf16_launches,
                     "teacher_forward": teacher_launches[0],
-                    "backward": deformable_sample.backward_launches}
+                    "backward": deformable_sample.backward_launches,
+                    "backward_by_path": dict(deformable_sample.backward_path_launches)}
         path_launches["train_recipe"] = launches["forward"]
         path_launches["train_recipe_backward"] = launches["backward"]
         records = out["records"]
@@ -965,9 +1037,11 @@ def check_train(card: str, path_launches: dict) -> dict:
                 and abs(psnr_ - RECORD_15000["val_psnr"]) <= TRAIN_PSNR_TOL):
             raise AssertionError(f"step 15000: train_loss {loss}, PSNR {psnr_} against the "
                                  f"record {RECORD_15000}")
-        expect = {"backward": 3 * steps, "teacher_forward": 3 * steps,
+        expect = {"backward": 3 * steps, "backward_smem": 3 * steps, "teacher_forward": 3 * steps,
                   "student_forward": 3 * steps, "eval_forward": 2 * 12}
-        got = {"backward": launches["backward"], "teacher_forward": launches["teacher_forward"],
+        got = {"backward": launches["backward"],
+               "backward_smem": launches["backward_by_path"]["smem"],
+               "teacher_forward": launches["teacher_forward"],
                "student_forward": launches["bf16_forward"] - launches["teacher_forward"],
                "eval_forward": launches["forward"] - launches["bf16_forward"]}
         emit({"train_recipe_launches": got, "expected": expect})
@@ -982,7 +1056,8 @@ def check_train(card: str, path_launches: dict) -> dict:
             raise AssertionError("the written checkpoint differs from the in-memory state")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    return {"backward_launches": launches["backward"], "steps": steps}
+    return {"backward_launches": launches["backward"], "steps": steps,
+            "backward_path_launches": launches["backward_by_path"]}
 
 
 def check_row_gather(gen, probe_shapes) -> None:

@@ -19,7 +19,14 @@ atomics in a changing order) and in bf16 (at most 1 bf16 ulp from the fp32
 gradient of the bf16 inputs, rounded once; where those fp32 sums cancel,
 so that the two orders differ by more than an ulp of the small result,
 within the fp32 limit instead), at every vector and index width, with one
-counted backward launch per call of the autograd Function.
+counted backward launch per call of the autograd Function; the global
+backward path, forced, beside the planned shared-memory path at the
+student's and the teacher's training levels and at the edge cases, with
+``grad_residual`` and ``grad_flow`` equal bit for bit over two launches
+(they are summed without atomics; ``grad_feat``, summed with atomics, is
+held to the tolerance only), the refusal of a plan that does not fit the
+call with no launch counted, and a forward and backward through
+``DeformableSample`` captured in a CUDA graph.
 
 These tests need an NVIDIA card with nvcc (the kernels have no CPU mode) and
 skip without one. On the card's machine, which has no JAX, run them without
@@ -32,11 +39,12 @@ import pytest
 import torch
 
 from videoframeinterpolation_tpu_torch.kernels import (
-    deformable_sample, deformable_sample_backward_plain, lane_gather, lane_gather_plain,
+    build, deformable_sample, deformable_sample_backward_plain, lane_gather, lane_gather_plain,
     row_gather, row_gather_plain)
 from videoframeinterpolation_tpu_torch.kernels.gather import _row_gather_launch
 from videoframeinterpolation_tpu_torch.kernels.window_sample import (
-    _grouped_deformable_sample, _index_bits, _launch, _launch_backward, _vector_bytes)
+    BackwardPlan, DeformableSample, _backward_plan, _grouped_deformable_sample, _index_bits,
+    _launch, _launch_backward, _vector_bytes)
 
 pytestmark = pytest.mark.cuda
 
@@ -321,4 +329,117 @@ def test_autograd_on_the_card_runs_the_backward_kernel_once(gen):
     torch.cuda.synchronize()
     assert (deformable_sample.launches, deformable_sample.backward_launches) == (
         before[0] + 1, before[1] + 1)
+    _check_backward([x.grad for x in leaves], feat, flow, res, grad_out)
+
+
+# The cases of both backward paths: the training levels, then edge cases.
+PATH_CASES = ["train_student_lv3", "train_student_lv2", "train_student_lv1",
+              "train_teacher_lv2", "train_teacher_lv1", "one_pixel", "cg9", "odd_cg7"]
+
+
+def _plan(name, dtype, path):
+    """The planned path of a case (shared memory at every case here), or the
+    global path forced at the same index width."""
+    B2, H, W, C, G, S = BACKWARD_CASES[name][:6]
+    plan = _backward_plan(B2, H, W, C, G, S)
+    assert plan.path == "smem", plan
+    return plan if path == "smem" else BackwardPlan("global", 0, 0, plan.index_bits)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", PATH_CASES)
+def test_the_global_backward_path_matches_autograd_through_the_plain_version(gen, name, dtype):
+    """The global path forced where the shared-memory path is planned (the
+    planned path at these cases is the test above)."""
+    feat, flow, res, grad_out = _backward_case(gen, name, dtype)
+    before = dict(deformable_sample.backward_path_launches)
+    got = _launch_backward(feat, flow, res, grad_out, res.shape[3],
+                           plan=_plan(name, dtype, "global"))
+    torch.cuda.synchronize()
+    assert deformable_sample.backward_path_launches == {**before,
+                                                        "global": before["global"] + 1}
+    _check_backward(got, feat, flow, res, grad_out)
+
+
+@pytest.mark.parametrize("path", ["smem", "global"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", PATH_CASES[:5])
+def test_coordinate_gradients_are_reproducible(gen, name, dtype, path):
+    """``grad_residual`` and ``grad_flow`` are summed in a fixed order
+    without atomics: two launches give the same bits on either path."""
+    feat, flow, res, grad_out = _backward_case(gen, name, dtype)
+    plan = _plan(name, dtype, path)
+    first = _launch_backward(feat, flow, res, grad_out, res.shape[3], plan=plan)
+    second = _launch_backward(feat, flow, res, grad_out, res.shape[3], plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+
+
+@pytest.mark.parametrize("plan", [
+    BackwardPlan("smem", 2, 0, 32),            # 2 does not divide a group of 9 channels
+    BackwardPlan("smem", 0, 0, 32),
+    BackwardPlan("shared", 9, 0, 32)])
+def test_a_backward_plan_that_does_not_fit_is_refused(gen, plan):
+    feat, flow, res, grad_out = _backward_case(gen, "cg9", torch.bfloat16)
+    before = (deformable_sample.backward_launches, dict(deformable_sample.backward_path_launches))
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _launch_backward(feat, flow, res, grad_out, 8, plan=plan)
+    assert (deformable_sample.backward_launches,
+            dict(deformable_sample.backward_path_launches)) == before
+
+
+def test_a_slice_beyond_227_kb_is_refused(gen):
+    """At a 448x256 request's lv1 one channel takes 112 KB, so three take
+    336 KB: more than a block may hold."""
+    feat, flow, res = _inputs(gen, 1, 128, 224, 72, 1, 1, 8.0)
+    grad_out = torch.randn((1, 1, 128 * 224, 72), generator=gen, device="cuda")
+    before = deformable_sample.backward_launches
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _launch_backward(feat, flow, res, grad_out, 1, plan=BackwardPlan("smem", 3, 0, 32))
+    assert deformable_sample.backward_launches == before
+
+
+def test_the_build_figures_are_the_cards(gen):
+    """The figures the kernels are compiled with and the backward's plan
+    reads (``kernels/build.py``) are the card's, where this PyTorch's device
+    properties carry them."""
+    props = torch.cuda.get_device_properties(0)
+    assert props.multi_processor_count == build.SMS
+    for name, value in (("max_threads_per_multi_processor", build.THREADS_PER_SM),
+                        ("shared_memory_per_multiprocessor", build.SMEM_PER_SM),
+                        ("shared_memory_per_block_optin", build.SMEM_PER_BLOCK)):
+        assert getattr(props, name, value) == value, name
+
+
+def test_the_backward_runs_under_cuda_graph_capture(gen):
+    """A forward and backward through ``DeformableSample`` captured in one
+    CUDA graph: on replay, the coordinate gradients equal an eager call's
+    bit for bit and ``grad_feat`` is within the tolerance of the plain
+    version; the replay adds no launch to the counts."""
+    feat, flow, res, grad_out = _backward_case(gen, "train_student_lv2", torch.bfloat16)
+    leaves = [x.detach().clone().requires_grad_() for x in (feat, flow, res)]
+
+    def step():
+        for x in leaves:
+            x.grad = None
+        DeformableSample.apply(*leaves, 1).backward(grad_out)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    for x in leaves:
+        x.grad = None
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        DeformableSample.apply(*leaves, 1).backward(grad_out)
+    counts = (deformable_sample.launches, deformable_sample.backward_launches)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (deformable_sample.launches, deformable_sample.backward_launches) == counts
+    eager = _launch_backward(feat, flow, res, grad_out, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(leaves[1].grad, eager[1]) and torch.equal(leaves[2].grad, eager[2])
     _check_backward([x.grad for x in leaves], feat, flow, res, grad_out)

@@ -4,8 +4,11 @@ Every ``kernels/csrc/*.cu`` file exposes a plain C interface (no PyTorch
 headers), so the build is a single command that takes seconds::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas=-v -o _build/libvfi_torch_kernels.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas=-v -DVFI_THREADS_PER_SM=2048 ... \
+         -o _build/libvfi_torch_kernels.so csrc/*.cu
 
+The ``-D`` flags are :data:`DEFINES`: the card's figures and the kernels'
+launch limits that the launch plans in Python read too, defined here once.
 The library goes into ``videoframeinterpolation_tpu_torch/_build/`` (listed
 in ``.gitignore``) and is rebuilt only when the hash of the sources
 changes. What ``ptxas`` reports for each kernel (registers, spills) is kept
@@ -29,16 +32,30 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 LIB_NAME = "libvfi_torch_kernels.so"
 PTXAS_LOG = LIB_NAME + ".ptxas.txt"
+# The H100 (sm_90a, the one target): SMs, threads and shared memory per SM,
+# the most dynamic shared memory a block may opt into, and what the runtime
+# reserves for each resident block.
+SMS = 132
+THREADS_PER_SM = 2048
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK = 232448
+SMEM_RESERVED = 1024
+# The most threads a block of the backward's shared-memory feature kernel has.
+BWD_FEAT_THREADS = 512
+# What the sources are compiled with, as -D flags.
+DEFINES = {"VFI_THREADS_PER_SM": THREADS_PER_SM, "VFI_SMEM_PER_BLOCK": SMEM_PER_BLOCK,
+           "VFI_BWD_FEAT_THREADS": BWD_FEAT_THREADS}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              *(f"-D{name}={value}" for name, value in DEFINES.items())]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes; every function returns a cudaError_t as int.
 SIGNATURES = {
     "vfi_deformable_sample_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vfi_deformable_sample_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "vfi_deformable_sample_bwd_f32": [_P] * 7 + [_I] * 8 + [_P],
-    "vfi_deformable_sample_bwd_bf16": [_P] * 7 + [_I] * 8 + [_P],
+    "vfi_deformable_sample_bwd_f32": [_P] * 7 + [_I] * 10 + [_P],
+    "vfi_deformable_sample_bwd_bf16": [_P] * 7 + [_I] * 10 + [_P],
     "vfi_row_gather_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "vfi_row_gather_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
     "vfi_lane_gather_f32": [_P, _P, _P, _I, _I, _I, _P],

@@ -11,23 +11,28 @@ function directly, for any residual, in ``csrc/deformable_sample.cu``.
 :func:`deformable_sample_plain` on a CPU tensor; it never falls back from
 one to the other. Where a gradient is asked for on the card it goes through
 :class:`DeformableSample`, whose backward is the hand-written
-``vfi_deformable_sample_bwd_*`` kernel of the same source; on the CPU,
-autograd differentiates the plain version, as XLA differentiates the JAX
-model's ``_grouped_deformable_sample``.
+``vfi_deformable_sample_bwd_*`` entry point of the same source (two
+kernels, on the path :func:`_backward_plan` picks); on the CPU, autograd
+differentiates the plain version, as XLA differentiates the JAX model's
+``_grouped_deformable_sample``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ..ops.interp import grid_sample
 from ..ops.warp import base_grid
-from .build import load_library
+from .build import (BWD_FEAT_THREADS, SMEM_PER_SM, SMEM_RESERVED, SMS, THREADS_PER_SM,
+                    load_library)
 
 _KERNELS = {torch.float32: "vfi_deformable_sample_f32",
             torch.bfloat16: "vfi_deformable_sample_bf16"}
 _BACKWARD_KERNELS = {torch.float32: "vfi_deformable_sample_bwd_f32",
                      torch.bfloat16: "vfi_deformable_sample_bwd_bf16"}
+_BACKWARD_PATHS = {"global": 0, "smem": 1}   # the C entry point's path codes
 
 
 def _grouped_deformable_sample(feat: torch.Tensor, ref_offsets: torch.Tensor,
@@ -148,16 +153,74 @@ def _launch(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Tensor, n_gr
     return out
 
 
+class BackwardPlan(NamedTuple):
+    """How the backward computes ``grad_feat`` for one call: ``path``
+    ``"smem"`` (a block per (frame, slice of ``k`` channels of one group),
+    the slice's fp32 gradient for the whole image in ``smem_bytes`` of
+    shared memory) or ``"global"`` (global fp32 atomics into a zeroed
+    buffer, rounded once; ``k`` and ``smem_bytes`` are 0), and the index
+    width of every kernel of the call."""
+    path: str
+    k: int
+    smem_bytes: int
+    index_bits: int
+
+
+def _backward_plan(B2: int, H: int, W: int, C: int, G: int, S: int) -> BackwardPlan:
+    """The backward's plan for a call. ``"smem"`` wherever a slice of
+    ``k`` channels (``k`` dividing a group's ``C // G``) leaves room for two
+    blocks per SM (``H * W * k * 4`` bytes each); of those ``k``, the one
+    whose ``B2 * C / k`` blocks take the fewest waves of the card (blocks of
+    ``(BWD_FEAT_THREADS // k) * k`` threads, as many per SM as threads and
+    shared memory allow: the kernel's ``__launch_bounds__`` keeps registers
+    from allowing fewer), then the smallest ``k`` (the most blocks in that
+    wave). ``"global"`` where even ``k = 1`` does not fit twice per SM.
+    Index width as :func:`_index_bits`. The card's figures and the block
+    size are :mod:`.build`'s, which the kernels are compiled with."""
+    bits = _index_bits(B2, H, W, C, G, S)
+    per_channel = H * W * 4
+    fits = [k for k in range(1, min(C // G, BWD_FEAT_THREADS) + 1)
+            if (C // G) % k == 0 and 2 * (k * per_channel + SMEM_RESERVED) <= SMEM_PER_SM]
+    if not fits:
+        return BackwardPlan("global", 0, 0, bits)
+
+    def waves(k: int) -> int:
+        per_sm = min(THREADS_PER_SM // ((BWD_FEAT_THREADS // k) * k),
+                     SMEM_PER_SM // (k * per_channel + SMEM_RESERVED))
+        return -(-B2 * (C // k) // (SMS * per_sm))
+
+    k = min(fits, key=lambda k: (waves(k), k))
+    return BackwardPlan("smem", k, k * per_channel, bits)
+
+
 def _launch_backward(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Tensor,
                      grad_out: torch.Tensor, n_groups: int, vector_bytes: int | None = None,
-                     index_bits: int | None = None):
+                     index_bits: int | None = None, plan: BackwardPlan | None = None):
     """Launch ``vfi_deformable_sample_bwd_*`` on checked CUDA tensors
     (``grad_out`` contiguous, ``(B2, S, H*W, C)`` in ``feat``'s dtype) and
-    count the launch. Returns ``(grad_feat, grad_flow, grad_residual)`` in
-    the inputs' dtype: ``grad_feat`` and ``grad_flow`` are summed with fp32
-    atomics and rounded once, ``grad_residual`` is each thread's fp32 sum
-    rounded once. Widths as in :func:`_launch` (``grad_out`` takes ``out``'s
-    place)."""
+    count the launch, in ``deformable_sample.backward_launches`` and under
+    its path in ``deformable_sample.backward_path_launches``. Returns
+    ``(grad_feat, grad_flow, grad_residual)`` in the inputs' dtype.
+
+    One call runs two kernels (``csrc/deformable_sample.cu``): the feature
+    kernel on a side stream (one per host thread and device) forked from
+    the current one, the coordinate kernel on the current stream beside it,
+    joined before the call returns.
+    The coordinate kernel sums ``grad_residual`` and ``grad_flow`` in fp32
+    without atomics, in a fixed order, and rounds each once: they are the
+    same bits on every run. The feature kernel follows ``plan``
+    (:func:`_backward_plan` unless given): on ``"smem"`` each block sums its
+    slice of ``grad_feat`` in shared memory and writes it once in the
+    inputs' dtype (no buffer to zero, nothing to cast); on ``"global"`` it
+    adds into a zeroed fp32 buffer that is then rounded once. Atomics on
+    both paths add in a changing order, so ``grad_feat`` is not
+    bit-reproducible. Vector width as in :func:`_launch` (``grad_out``
+    takes ``out``'s place; the shared-memory path's feature kernel reads one
+    element per lane); ``index_bits``, if given, replaces the plan's. The
+    kernels refuse a width or a plan that does not fit the call (a slice
+    that does not divide a group, exceeds 227 KB or 512 channels, more than
+    256 chunks per pixel); nothing is launched then, and the refusal
+    raises."""
     B2, H, W, C = feat.shape
     S = residual.shape[4]
     if tuple(grad_out.shape) != (B2, S, H * W, C) or grad_out.dtype != feat.dtype:
@@ -165,31 +228,42 @@ def _launch_backward(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Ten
                          f"the output {(B2, S, H * W, C)} {feat.dtype}")
     if grad_out.device != feat.device or not grad_out.is_contiguous():
         raise ValueError("grad_out must be contiguous and on feat's device")
-    grad_feat = torch.zeros((B2, H, W, C), dtype=torch.float32, device=feat.device)
-    grad_flow = torch.zeros((B2, H, W, 2), dtype=torch.float32, device=feat.device)
+    if plan is None:
+        plan = _backward_plan(B2, H, W, C, n_groups, S)
+    if index_bits is not None:
+        plan = plan._replace(index_bits=index_bits)
+    if plan.path == "smem":
+        grad_feat = torch.empty_like(feat)
+    else:
+        grad_feat = torch.zeros(feat.shape, dtype=torch.float32, device=feat.device)
+    grad_flow = torch.empty_like(flow)
     grad_residual = torch.empty_like(residual)
     if vector_bytes is None:
         vector_bytes = _vector_bytes(C, n_groups, feat.element_size(), feat.data_ptr(),
                                      grad_out.data_ptr())
-    if index_bits is None:
-        index_bits = _index_bits(B2, H, W, C, n_groups, S)
     name = _BACKWARD_KERNELS[feat.dtype]
     fn = getattr(load_library(), name)
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(feat.data_ptr(), flow.data_ptr(), residual.data_ptr(), grad_out.data_ptr(),
                  grad_feat.data_ptr(), grad_residual.data_ptr(), grad_flow.data_ptr(),
-                 B2, H, W, C, n_groups, S, vector_bytes, index_bits, stream)
+                 B2, H, W, C, n_groups, S, vector_bytes, plan.index_bits,
+                 _BACKWARD_PATHS.get(plan.path, -1), plan.k, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed to launch ({vector_bytes}-byte vectors, "
-                           f"{index_bits}-bit indices): cudaError {err}")
+                           f"plan {plan}): cudaError {err}")
     deformable_sample.backward_launches += 1
-    return grad_feat.to(feat.dtype), grad_flow.to(flow.dtype), grad_residual
+    deformable_sample.backward_path_launches[plan.path] += 1
+    return grad_feat.to(feat.dtype), grad_flow, grad_residual
 
 
 class DeformableSample(torch.autograd.Function):
     """The sampler on the card with a gradient: forward :func:`_launch`,
-    backward :func:`_launch_backward`, each a hand-written kernel."""
+    backward :func:`_launch_backward` on its planned path (two hand-written
+    kernels, one counted launch). ``grad_residual`` and ``grad_flow`` are
+    reproducible bit for bit; ``grad_feat``, summed with atomics, is not.
+    Both directions allocate nothing that depends on the data and never
+    synchronise with the host, so a CUDA graph can capture them."""
 
     @staticmethod
     def forward(ctx, feat, flow, residual, n_groups):
@@ -224,7 +298,8 @@ def deformable_sample(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Te
     ``deformable_sample.bf16_launches``); where autograd records the call,
     it goes through :class:`DeformableSample`, whose backward launches
     ``vfi_deformable_sample_bwd_*`` and adds one to
-    ``deformable_sample.backward_launches``. On a CPU tensor it runs
+    ``deformable_sample.backward_launches`` and to its path's count in
+    ``deformable_sample.backward_path_launches``. On a CPU tensor it runs
     :func:`deformable_sample_plain` (differentiable by autograd).
     """
     _check(feat, flow, residual, n_groups)
@@ -241,3 +316,4 @@ def deformable_sample(feat: torch.Tensor, flow: torch.Tensor, residual: torch.Te
 deformable_sample.launches = 0
 deformable_sample.bf16_launches = 0
 deformable_sample.backward_launches = 0
+deformable_sample.backward_path_launches = dict.fromkeys(_BACKWARD_PATHS, 0)

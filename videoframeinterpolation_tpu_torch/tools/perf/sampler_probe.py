@@ -18,15 +18,21 @@ element at the fp32 rate) and the kernel's share of it. Needs a CUDA
 device, and raises without one. Timing launches are not counted in
 ``deformable_sample.launches``.
 
-With ``--backward`` it times the backward kernel (``_launch_backward``,
-its fp32 buffers and the rounding of them included) at the student's
-three levels of a training batch (``TRAIN_LEVELS``: 8 pairs of 128x128,
-B2 16, S 8/8/2), beside autograd through the plain version,
+With ``--backward`` it times the backward (``_launch_backward``, the
+whole call: its kernels and whatever buffers and casts its path needs) at
+the student's three levels of a training batch (``TRAIN_LEVELS``: 8 pairs
+of 128x128, B2 16, S 8/8/2), on the path ``_backward_plan`` picks and on
+the global path forced, beside autograd through the plain version,
 ``F.grid_sample``'s backward on the same work (``aten::grid_sampler_2d_backward``,
 both gradients) and the bound: bytes, each input (feat, flow, residual,
 grad_out) read once and each gradient written once in the inputs' dtype;
 operations, 22 per sample and channel (14 for the coordinate gradient, 4
-products and 4 adds into the taps) at the fp32 rate.
+products and 4 adds into the taps) at the fp32 rate. It prints each
+level's plan (path, channels per block, shared-memory bytes), the device
+operations one call issues on each path (``torch.profiler``), and the
+registers and spills ``ptxas`` reported for the backward kernels. To
+compare with an earlier tree on the same card, run this from each tree's
+root in one command, earlier / this / this / earlier.
 """
 
 from __future__ import annotations
@@ -37,9 +43,11 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from ...kernels.window_sample import (_launch_backward, deformable_sample,
-                                      deformable_sample_backward_plain, deformable_sample_plain)
-from .timing import bytes_bound_ms, device_marginal_ms, loop_ms, require_card
+from ...kernels import build
+from ...kernels.window_sample import (BackwardPlan, _backward_plan, _launch_backward,
+                                      deformable_sample, deformable_sample_backward_plain,
+                                      deformable_sample_plain)
+from .timing import bytes_bound_ms, device_marginal_ms, device_ops, loop_ms, require_card
 
 FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 C = 72
@@ -119,14 +127,24 @@ def level_times(feat: torch.Tensor, flow: torch.Tensor, res: torch.Tensor,
 
 def backward_level_times(feat: torch.Tensor, flow: torch.Tensor, res: torch.Tensor,
                          grad_out: torch.Tensor) -> dict:
-    """One level's backward: the kernel (device clock), autograd through the
+    """One level's backward: the planned path and the global path (device
+    clock, and the device operations of one call), autograd through the
     plain version, ``F.grid_sample``'s backward on the same work (device
     clock) and the bound."""
     B2, h, w, C = feat.shape
     G, S = res.shape[3], res.shape[4]
-    calls = deformable_sample.backward_launches
-    ms = device_marginal_ms(lambda: _launch_backward(feat, flow, res, grad_out, G), n_hi=17)
-    deformable_sample.backward_launches = calls
+    plan = _backward_plan(B2, h, w, C, G, S)
+    calls = (deformable_sample.backward_launches,
+             dict(deformable_sample.backward_path_launches))
+    paths = {}
+    for name, p in (("planned", plan), ("global", BackwardPlan("global", 0, 0, plan.index_bits))):
+        def run(p=p):
+            return _launch_backward(feat, flow, res, grad_out, G, plan=p)
+
+        paths[name] = {"ms": device_marginal_ms(run, n_hi=17), "device_ops": device_ops(run)}
+    deformable_sample.backward_launches = calls[0]
+    deformable_sample.backward_path_launches.update(calls[1])
+    ms = paths["planned"]["ms"]
     plain_ms = loop_ms(lambda: deformable_sample_backward_plain(feat, flow, res, grad_out, G),
                        10) / 10
 
@@ -151,9 +169,12 @@ def backward_level_times(feat: torch.Tensor, flow: torch.Tensor, res: torch.Tens
     ops_ms = 22 * B2 * S * h * w * C / FP32_FLOPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     return {"shape": [B2, h, w, C, G, S], "dtype": str(feat.dtype).removeprefix("torch."),
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "plan": plan._asdict(), "ms": ms, "global_ms": paths["global"]["ms"],
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bytes": nbytes,
-            "share_of_bound": bound_ms / ms, "library_over_kernel": library_ms / ms}
+            "share_of_bound": bound_ms / ms, "library_over_kernel": library_ms / ms,
+            "global_over_planned": paths["global"]["ms"] / ms,
+            "device_ops": {k: v["device_ops"] for k, v in paths.items()}}
 
 
 def main_backward() -> dict:
@@ -161,6 +182,10 @@ def main_backward() -> dict:
     ``TRAIN_LEVELS``."""
     card = require_card()
     print(card, flush=True)
+    build.load_library()
+    for row in build.ptxas_report():
+        if "bwd" in row["function"]:
+            print(json.dumps({"ptxas": row}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows: dict = {}
     for name, B2, h, w, G, S, scale in TRAIN_LEVELS:

@@ -76,6 +76,23 @@ def device_marginal_ms(fn: Callable[[], object], n_hi: int) -> float:
     return (graph_ms(fn, n_hi) - graph_ms(fn, 1)) / (n_hi - 1)
 
 
+def device_ops(fn: Callable[[], object]) -> list[str]:
+    """The names of the device operations (kernels, fills, copies) that one
+    call of ``fn`` issues, from ``torch.profiler``'s CUDA trace, after one
+    call to warm up. Raises when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        raise RuntimeError("torch.profiler recorded no device operation")
+    return ops
+
+
 def bytes_bound_ms(nbytes: int) -> float:
     """The least time the card could take to move ``nbytes`` through its memory."""
     return nbytes / HBM_BYTES_PER_S * 1e3
