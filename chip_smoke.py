@@ -12,21 +12,25 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      registers and spills as ``ptxas -v`` reports them;
   2. kernel: every kernel against its plain PyTorch version on the card:
      the deformable sampler at the three DAT level shapes of a 448x256
-     request (B2 2) and of a held-out evaluation batch (8 pairs of
-     128x128, B2 16) for the shared-offset student (G 1, S 8/8/2), the
+     request (B2 2), of a held-out evaluation batch (8 pairs of
+     128x128, B2 16) and of ``validate_synthetic``'s batch (4 pairs of
+     256x448, B2 8) for the shared-offset student (G 1, S 8/8/2), the
      non-shared checkpoint (G 4/8/8, S 8/16/32) and the teacher (G 1, S
-     8/16/8), and at edge cases (far, integer,
-     edge and negative positions, narrow groups, an odd group width, feat
+     8/16/8), at the chunk of 8 tiles of 512x512 (B2 16) of the student
+     and the non-shared checkpoint, at the student's full 720x1280 pair
+     and its flow probe's 176x320 forward (B2 2), and at edge cases (far,
+     integer, edge and negative positions, narrow groups, an odd group width, feat
      misaligned by a storage offset), in fp32 (max |diff| 0.0) and in bf16
      (0 ulps from the fp32 sampling of its bf16 inputs, rounded once); at
      each case the vector width and index width the wrapper picks, and
      every narrower width and the 64-bit index, so that every instance of
-     the kernel runs; and a 1080p non-shared level whose output has more
-     than 2^31 elements (64-bit indices), checked at its first and last
-     (frame, sample) slices; the sampler's backward kernel against autograd
-     through the plain version (``deformable_sample_backward_plain``) at the
-     student's and the teacher's level shapes of a training batch (8 pairs
-     of 128x128, B2 16) and at edge cases (far outside, integer
+     the kernel runs; and two non-shared lv1 shapes whose output has more
+     than 2^31 elements (64-bit indices: a 1080p request and the chunk of 8
+     tiles), checked at their first and last (frame, sample) slices; the
+     sampler's backward kernel against autograd through the plain version
+     (``deformable_sample_backward_plain``) at the student's and the
+     teacher's level shapes of a training batch (8 pairs of 128x128, B2
+     16) and at edge cases (far outside, integer
      coordinates, every sample of every query on one pixel, odd group
      widths), in fp32 (each gradient within 1e-5 of its max abs) and bf16
      (at most 1 ulp from the fp32 gradient of the bf16 inputs, rounded
@@ -89,7 +93,33 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      teacher forward and 3 backward sampler launches per step (the backward
      all on its shared-memory path); ms per step
      and peak memory; (c) the ``.ckpt`` it wrote, read back by the port's
-     reader, equals the final in-memory state leaf for leaf.
+     reader, equals the final in-memory state leaf for leaf;
+ 11. evaluate: the evaluation entry point (``python -m
+     videoframeinterpolation_tpu_torch.evaluate``) in fp32: ``--benchmark
+     synthetic --ssim`` for the three checkpoints (64 scenes of 256x448,
+     batches of 4, 3 fp32 launches per batch; the mean of the first
+     ``SYNTHETIC_ITEMS``, the same batches as a loop over that many, within
+     0.005 dB and 5e-5 SSIM of the JAX package's CPU fp32 read
+     ``JAX_SYNTHETIC``, the 64-scene read printed beside it); then the
+     shipped student on the Vimeo90K, UCF101 and SNU-FILM fixture trees
+     (``FIXTURE_TREES``, PNG written by ``tools/fixtures.py``, SNU-FILM with
+     an odd-sized triplet and each level listing its own triplets), each
+     within 0.005 dB of the JAX loop's CPU fp32 read (``JAX_TREES``), 3
+     launches per forward. The scenes, trees and the
+     HD triplet are rendered beforehand in worker processes;
+ 12. serve_hd: a 720x1280 PNG pair (``HD_PAIR``) through ``interpolate
+     --tile 512`` in bf16 (the plan ``(overlap, trim)`` equal to the JAX
+     CLI's, ``JAX_HD_PLAN``; 3 launches for the flow probe and 3 for the
+     one chunk of tiles; the tiled frame at least ``HD_SEAM_PSNR`` dB from
+     the full-frame one), ms per pair tiled and full-frame in bf16, ``evaluate --benchmark
+     snu --tile 512`` in fp32 on that triplet (the JAX plan, 24 launches for
+     4 levels), the tiled fp32 frame on the card within 1e-3 max abs of the
+     CPU's, and ``--mode direct --factor 4 --tile 512`` writing all 5
+     frames (12 bf16 launches: the probe, 3 instants of one chunk);
+ 13. shapes: every level shape at which phases 3-12 launched the sampler
+     (recorded at each launch) is listed; any that phase 2 did not hold is
+     held here as phase 2 holds its cases (one needing 64-bit indices
+     fails: it belongs in ``WIDE_CASES``).
 
 Each path's sampler launches (forward and backward) are counted from 0
 just before it runs and read just after; the kernels line gives them per
@@ -112,8 +142,11 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -162,6 +195,39 @@ JAX_CPU_FP32 = {
 }
 EVAL_PSNR_TOL = 0.005
 EVAL_SSIM_TOL = 5e-5
+# Phase 11 (evaluate): validate_synthetic's held-out scenes (256x448, seed 42,
+# batches of 4) held to the JAX CPU read; the card also prints its read of
+# the loop's 64. The fixture trees of the loops, benchmark -> (frame sizes,
+# seed), written by tools/fixtures.py; and the HD pair of phase 12 (serve_hd),
+# (size, seed), tiled at HD_TILE.
+SYNTHETIC_ITEMS = 32
+FIXTURE_TREES = {"vimeo90k": (((256, 448),) * 3, 11),
+                 "ucf101": (((256, 256),) * 3, 12),
+                 "snu": (((256, 448), (270, 480), (256, 448)), 13)}
+HD_PAIR = ((720, 1280), 14)
+HD_TILE = 512
+# The JAX package's CPU fp32 reads of them, printed by
+#   JAX_PLATFORMS=cpu python tests/jax_cpu_reads.py --part synthetic|trees|plan
+# validate_synthetic over SYNTHETIC_ITEMS scenes, (PSNR dB, SSIM):
+# (401.8 s, 710.0 s and 393.2 s on an 8-core host; most of it in ssim_3d):
+JAX_SYNTHETIC = {"DAT_fast": (46.8831353187561, 0.9964991379529238),
+                 "DAT": (46.38833129405975, 0.9961631074547768),
+                 "DAT_fast_teacher": (46.16134071350098, 0.9960416611284018)}
+# The student on each fixture tree (the loop's result, PSNR only):
+JAX_TREES = {"vimeo90k": {"val/vimeo90k_psnr": 40.70245488484701},
+             "ucf101": {"val/ucf101_psnr": 39.70137278238932},
+             "snu": {"val/snu_test-easy_psnr": 46.52494430541992,
+                     "val/snu_test-medium_psnr": 44.51464080810547,
+                     "val/snu_test-hard_psnr": 52.0985107421875,
+                     "val/snu_test-extreme_psnr": 47.71269861857096}}
+# The plan (overlap, trim) for HD_PAIR at HD_TILE: the JAX evaluate.py's in
+# fp32 (probe 28.14223289489746 px) and interpolate.py's in the YAML's bf16
+# (probe 28.28125 px).
+JAX_HD_PLAN = {"evaluate": (96, 48), "interpolate": (96, 48)}
+# Phase 12: the bf16 tiled frame against the full-frame one. A seam, or a
+# tile blended at the wrong place, reads far below this (51.63 dB on an
+# NVIDIA H100 80GB HBM3).
+HD_SEAM_PSNR = 40.0
 # The same checkpoints as read on a TPU (tools/quality/results/eval_best.jsonl
 # lines 8, 7 and 6): printed beside the card's read as history, not held.
 TPU_EVAL_BEST = {"DAT_fast": (39.0322, 0.98176), "DAT": (37.9752, 0.97795),
@@ -213,9 +279,12 @@ STEP_STATE_TOL = 1e-6      # parameters, mu, nu, absolute
 # An index of K x N >= 2^31 elements (64-bit indices): 2^24 + 1 rows of a
 # 1024-row bf16 table, checked at its first and last rows.
 ROW_WIDE = (1024, 128, 2 ** 24 + 1, torch.bfloat16)
-# The non-shared lv1 of a 1920x1080 request (padded to 1088x1920): its
-# 2.4e9 output elements need 64-bit indices.
-WIDE = (2, 544, 960, 72, 8, 32, 8.0)
+# Level shapes whose output needs 64-bit indices, checked at their first
+# and last (frame, sample) slices: the non-shared lv1 of a 1920x1080 request
+# (padded to 1088x1920) and of a chunk of 8 tiles of 512x512 (B2 16), each
+# with about 2.4e9 output elements. (B2, H, W, C, G, S, offset scale).
+WIDE_CASES = {"1080p_non_shared_lv1": (2, 544, 960, 72, 8, 32, 8.0),
+              "tile8_512_non_shared_lv1": (16, 256, 256, 72, 8, 32, 8.0)}
 
 
 def emit(obj) -> None:
@@ -271,6 +340,107 @@ def sampler_cases(gen, level_inputs, level_sets):
     return cases
 
 
+def path_level_sets(sampler_probe) -> dict:
+    """The level shapes of this slice's paths beside the probe's: the eval
+    batch of 4 at 256x448 (B2 8) of each configuration, in which
+    ``validate_synthetic`` runs, and a chunk of 8 tiles of 512x512 (B2 16)
+    of the student and of the non-shared configuration, as ``--tile 512``
+    sends them (the non-shared lv1 of that chunk is in ``WIDE_CASES``); the
+    student's full 720x1280 pair (B2 2), which phase 12 serves whole as the
+    tiled frame's reference, and its flow probe, the 1/4-scale forward at
+    176x320 (B2 2) that every tiled request of phase 12 runs."""
+    levels = sampler_probe._levels
+    shared = sampler_probe.CONFIG_LEVELS["shared"]
+    sets = {f"eval4_{kind}": levels(8, 256, 448, gs)
+            for kind, gs in sampler_probe.CONFIG_LEVELS.items()}
+    sets["tile8_shared"] = levels(16, 512, 512, shared)
+    sets["tile8_non_shared"] = levels(16, 512, 512,
+                                      sampler_probe.CONFIG_LEVELS["non_shared"])[:2]
+    sets["hd_full_shared"] = levels(2, 720, 1280, shared)
+    sets["hd_probe_shared"] = levels(2, 176, 320, shared)
+    return sets
+
+
+def level_shape(feat: torch.Tensor, residual: torch.Tensor) -> tuple:
+    """``(B2, H, W, C, G, S)`` of one sampler call."""
+    return (*feat.shape, residual.shape[3], residual.shape[4])
+
+
+def check_sampler_case(name: str, feat32, flow32, res32, offset: int, reached: set) -> float:
+    """The sampler at one case, in fp32 and bf16, against the fp32 sampling
+    of its inputs rounded once: through the wrapper (the vector and index
+    width it picks), then at every narrower vector width and both index
+    widths (``reached`` collects each instance run). Returns the wrapper's
+    max abs error."""
+    from videoframeinterpolation_tpu_torch.kernels.window_sample import (
+        _index_bits, _launch, _vector_bytes, deformable_sample)
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        feat = at_offset(feat32.to(dtype), offset)
+        flow, res = flow32.to(dtype), res32.to(dtype)
+        B2, h, w, C = feat.shape
+        G, S = res.shape[3], res.shape[4]
+        ref = sampler_ref(feat, flow, res)
+        out = deformable_sample(feat, flow, res, G)
+        torch.cuda.synchronize()
+        plan = (_vector_bytes(C, G, feat.element_size(), feat.data_ptr(), out.data_ptr()),
+                _index_bits(B2, h, w, C, G, S))
+        # Every narrower width and the 64-bit index on the same inputs.
+        checked = {plan: out}
+        width = plan[0]
+        while width >= feat.element_size():
+            for bits in (32, 64):
+                if (width, bits) not in checked:
+                    checked[width, bits] = _launch(feat, flow, res, G, width, bits)
+            width //= 2
+        torch.cuda.synchronize()
+        for (width, bits), got in checked.items():
+            err = (got.float() - ref).abs().max().item()
+            reached.add((str(dtype), width, bits))
+            if not err <= SAMPLER_TOL:
+                raise AssertionError(f"sampler vs reference, case {name} {dtype} "
+                                     f"V={width} {bits}-bit: {err} > {SAMPLER_TOL}")
+        err = (out.float() - ref).abs().max().item()
+        worst = max(worst, err)
+        emit({"case": name, "dtype": str(dtype), "shape": list(res.shape),
+              "feat_offset_bytes": feat.data_ptr() % 16, "vector_bytes": plan[0],
+              "index_bits": plan[1], "instances": sorted(checked), "max_abs_err": err,
+              **({"max_err_in_ulps": bf16_ulps(out.float(), ref)}
+                 if dtype == torch.bfloat16 else {})})
+        del feat, flow, res, ref, out, checked
+    return worst
+
+
+def sampler_ref(feat, flow, res):
+    """The sampler's reference: in fp32 it must equal its plain version; in
+    bf16 it takes res + flow in fp32 (as the plain version does), samples
+    in fp32 and rounds once, so it must equal the fp32 sampling of the same
+    bf16 inputs, rounded once (0 bf16 ulps). For fp32 inputs this
+    reference is the plain version itself."""
+    from videoframeinterpolation_tpu_torch.kernels.window_sample import (
+        _grouped_deformable_sample)
+
+    ref = _grouped_deformable_sample(
+        feat.float(), res.float() + flow.float()[:, :, :, None, None, :], res.shape[3])
+    return ref.to(feat.dtype).float()
+
+
+def record_level_shapes(window_sample) -> set:
+    """Collect the ``level_shape`` of every forward launch of the sampler
+    from now on (by wrapping the module's launch, which the wrapper and the
+    autograd function call); returns the set it fills."""
+    shapes = set()
+    launch = window_sample._launch
+
+    def recording(feat, flow, residual, n_groups, *args, **kwargs):
+        shapes.add(level_shape(feat, residual))
+        return launch(feat, flow, residual, n_groups, *args, **kwargs)
+
+    window_sample._launch = recording
+    return shapes
+
+
 def at_offset(x: torch.Tensor, offset: int) -> torch.Tensor:
     """A contiguous copy of ``x`` that starts ``offset`` elements into a
     larger buffer, so that its data pointer is aligned to that offset only."""
@@ -298,8 +468,9 @@ def main() -> int:
     from videoframeinterpolation_tpu_torch.interpolate import SHIPPED_STUDENT, load_model
     from videoframeinterpolation_tpu_torch.kernels import (
         build, lane_gather, lane_gather_plain, row_gather, row_gather_plain)
+    from videoframeinterpolation_tpu_torch.kernels import window_sample
     from videoframeinterpolation_tpu_torch.kernels.window_sample import (
-        _grouped_deformable_sample, _index_bits, _launch, _vector_bytes, deformable_sample)
+        _index_bits, deformable_sample)
     from videoframeinterpolation_tpu_torch.tools.perf import (
         gather_probe, lane_gather_probe, sampler_probe, timing)
 
@@ -316,75 +487,40 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = {}
     with Phase("kernel"):
-        # The sampler in fp32 must equal its plain version; in bf16 it takes
-        # res + flow in fp32 (as the plain version does), samples in fp32
-        # and rounds once, so it must equal the fp32 sampling of the same
-        # bf16 inputs, rounded once (0 bf16 ulps). For fp32 inputs this
-        # reference is the plain version itself.
-        def sampler_ref(feat, flow, res):
-            ref = _grouped_deformable_sample(
-                feat.float(), res.float() + flow.float()[:, :, :, None, None, :], res.shape[3])
-            return ref.to(feat.dtype).float()
-
         reached = set()
-        cases = sampler_cases(gen, sampler_probe.level_inputs, sampler_probe.LEVEL_SETS)
+        cases = sampler_cases(gen, sampler_probe.level_inputs,
+                              {**sampler_probe.LEVEL_SETS, **path_level_sets(sampler_probe)})
         for name, (feat32, flow32, res32, offset) in cases.items():
-            for dtype in (torch.float32, torch.bfloat16):
-                feat = at_offset(feat32.to(dtype), offset)
-                flow, res = flow32.to(dtype), res32.to(dtype)
-                B2, h, w, C = feat.shape
-                G, S = res.shape[3], res.shape[4]
-                ref = sampler_ref(feat, flow, res)
-                out = deformable_sample(feat, flow, res, G)
-                torch.cuda.synchronize()
-                plan = (_vector_bytes(C, G, feat.element_size(), feat.data_ptr(),
-                                      out.data_ptr()), _index_bits(B2, h, w, C, G, S))
-                # Every narrower width and the 64-bit index on the same inputs.
-                checked = {plan: out}
-                width = plan[0]
-                while width >= feat.element_size():
-                    for bits in (32, 64):
-                        if (width, bits) not in checked:
-                            checked[width, bits] = _launch(feat, flow, res, G, width, bits)
-                    width //= 2
-                torch.cuda.synchronize()
-                for (width, bits), got in checked.items():
-                    err = (got.float() - ref).abs().max().item()
-                    reached.add((str(dtype), width, bits))
-                    if not err <= SAMPLER_TOL:
-                        raise AssertionError(f"sampler vs reference, case {name} {dtype} "
-                                             f"V={width} {bits}-bit: {err} > {SAMPLER_TOL}")
-                err = (out.float() - ref).abs().max().item()
-                max_err["deformable_sample"] = max(max_err.get("deformable_sample", 0.0), err)
-                emit({"case": name, "dtype": str(dtype), "shape": list(res.shape),
-                      "feat_offset_bytes": feat.data_ptr() % 16, "vector_bytes": plan[0],
-                      "index_bits": plan[1], "instances": sorted(checked), "max_abs_err": err,
-                      **({"max_err_in_ulps": bf16_ulps(out.float(), ref)}
-                         if dtype == torch.bfloat16 else {})})
-            del feat, flow, res, ref, out, checked
+            err = check_sampler_case(name, feat32, flow32, res32, offset, reached)
+            max_err["deformable_sample"] = max(max_err.get("deformable_sample", 0.0), err)
+        checked_shapes = {level_shape(feat, res) for feat, _, res, _ in cases.values()}
+        del cases
         # 64-bit indices, as the wrapper picks them: the first and last
         # (frame, sample) slices against the reference on those slices.
-        B2, h, w, C, G, S, sc = WIDE
-        wide = sampler_probe.level_inputs(gen, B2, h, w, C, G, S, sc)
-        for dtype in (torch.bfloat16, torch.float32):
-            feat, flow, res = (x.to(dtype) for x in wide)
-            out = deformable_sample(feat, flow, res, G)
-            torch.cuda.synchronize()
-            bits = _index_bits(B2, h, w, C, G, S)
-            finite = bool(torch.isfinite(out).all())
-            errs = []
-            for b, s_ in ((0, 0), (B2 - 1, S - 1)):
-                ref = sampler_ref(feat[b:b + 1], flow[b:b + 1], res[b:b + 1, :, :, :, s_:s_ + 1])
-                errs.append((out[b:b + 1, s_:s_ + 1].float() - ref).abs().max().item())
-            reached.add((str(dtype), "wide", bits))
-            emit({"case": "wide_index_1080p_non_shared_lv1", "dtype": str(dtype),
-                  "shape": list(res.shape), "out_elements": out.numel(), "index_bits": bits,
-                  "finite": finite, "max_abs_err_first_last_slices": errs})
-            if bits != 64 or not finite or max(errs) > SAMPLER_TOL:
-                raise AssertionError(f"wide sampler case {dtype}: {bits}-bit, finite {finite}, "
-                                     f"errors {errs}")
-            del feat, flow, res, out
-        del wide
+        for case, (B2, h, w, C, G, S, sc) in WIDE_CASES.items():
+            wide = sampler_probe.level_inputs(gen, B2, h, w, C, G, S, sc)
+            for dtype in (torch.bfloat16, torch.float32):
+                feat, flow, res = (x.to(dtype) for x in wide)
+                out = deformable_sample(feat, flow, res, G)
+                torch.cuda.synchronize()
+                bits = _index_bits(B2, h, w, C, G, S)
+                finite = bool(torch.isfinite(out).all())
+                errs = []
+                for b, s_ in ((0, 0), (B2 - 1, S - 1)):
+                    ref = sampler_ref(feat[b:b + 1], flow[b:b + 1],
+                                      res[b:b + 1, :, :, :, s_:s_ + 1])
+                    errs.append((out[b:b + 1, s_:s_ + 1].float() - ref).abs().max().item())
+                reached.add((str(dtype), "wide", bits))
+                emit({"case": f"wide_index_{case}", "dtype": str(dtype),
+                      "shape": list(res.shape), "out_elements": out.numel(), "index_bits": bits,
+                      "finite": finite, "max_abs_err_first_last_slices": errs})
+                if bits != 64 or not finite or max(errs) > SAMPLER_TOL:
+                    raise AssertionError(f"wide sampler case {case} {dtype}: {bits}-bit, "
+                                         f"finite {finite}, errors {errs}")
+                del feat, flow, res, out
+            del wide
+            torch.cuda.empty_cache()
+            checked_shapes.add((B2, h, w, C, G, S))
         need = ({("torch.float32", v, b) for v in (16, 8, 4) for b in (32, 64)}
                 | {("torch.bfloat16", v, b) for v in (16, 8, 4, 2) for b in (32, 64)}
                 | {("torch.float32", "wide", 64), ("torch.bfloat16", "wide", 64)})
@@ -413,6 +549,9 @@ def main() -> int:
         del x, idx, out
         check_row_gather(gen, gather_probe.SHAPES)
         bwd_err = check_backward(gen)
+    # From here on, every level shape a path launches the sampler at is
+    # recorded; phase 13 holds those that phase 2 did not.
+    launched_shapes = record_level_shapes(window_sample)
 
     rng = np.random.default_rng(0)
     tex = smooth_texture(rng, 320, 512)
@@ -520,6 +659,26 @@ def main() -> int:
 
     with Phase("train"):
         train = check_train(card, path_launches)
+
+    with tempfile.TemporaryDirectory(prefix="vfi_eval_") as tmp:
+        with Phase("evaluate"):
+            hd = check_evaluate(Path(tmp), path_launches)
+        with Phase("serve_hd"):
+            check_serve_hd(Path(tmp), hd, model, card, path_launches)
+
+    with Phase("shapes"):
+        late = sorted(launched_shapes - checked_shapes)
+        emit({"launched_level_shapes": sorted(launched_shapes), "checked_in_phase_2":
+              len(launched_shapes & checked_shapes), "checked_here": late})
+        for B2, h, w, C, G, S in late:
+            if _index_bits(B2, h, w, C, G, S) == 64:
+                raise AssertionError(f"a path launched the sampler at {(B2, h, w, C, G, S)}, "
+                                     "which needs 64-bit indices: add it to WIDE_CASES")
+            inputs = sampler_probe.level_inputs(gen, B2, h, w, C, G, S, 8.0)
+            err = check_sampler_case(f"launched_{B2}x{h}x{w}x{C}_g{G}_s{S}", *inputs, 0,
+                                     set())
+            max_err["deformable_sample"] = max(max_err["deformable_sample"], err)
+            del inputs
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -768,6 +927,289 @@ def check_eval(path_launches: dict) -> None:
                 and abs(rec["ssim"] - ref_ssim) <= EVAL_SSIM_TOL):
             raise AssertionError(f"eval {name}: PSNR {rec['psnr']} / SSIM {rec['ssim']} against "
                                  f"JAX's CPU fp32 {ref_psnr} / {ref_ssim}")
+
+def _render_scene(args):
+    """A held-out ``SyntheticMotion`` scene (run in a worker process)."""
+    from videoframeinterpolation_tpu_torch.data import SyntheticMotion
+
+    hw, seed, idx = args
+    return SyntheticMotion(crop_hw=hw, is_train=False, seed=seed, num_items=idx + 1)[idx]
+
+
+def _write_fixture(args):
+    """A fixture tree, or the HD triplet (run in a worker process)."""
+    from videoframeinterpolation_tpu_torch.tools import fixtures
+
+    kind, base, hws, seed = args
+    if kind == "hd":
+        return fixtures.triplet(hws[0], seed)
+    getattr(fixtures, f"write_{kind}")(base, hws, seed)
+    return None
+
+
+@contextlib.contextmanager
+def cached_scenes(scenes: dict):
+    """Serve ``SyntheticMotion`` items of the held-out split at the default
+    instant from ``scenes`` (``(crop_hw, seed, idx) -> item``), rendered
+    beforehand in worker processes; other items render as usual."""
+    from videoframeinterpolation_tpu_torch.data.synthetic import SyntheticMotion
+
+    render = SyntheticMotion.__getitem__
+
+    def getitem(self, idx):
+        key = (self.crop_hw, self.base_seed, idx)
+        if (not self.is_train and self.t_range is None and self.fixed_t is None
+                and key in scenes):
+            return scenes[key]
+        return render(self, idx)
+
+    SyntheticMotion.__getitem__ = getitem
+    try:
+        yield
+    finally:
+        SyntheticMotion.__getitem__ = render
+
+
+@contextlib.contextmanager
+def working_directory(path: Path):
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+
+
+def check_evaluate(tmp: Path, path_launches: dict):
+    """Phase 11 (see the module docstring). Renders the synthetic scenes,
+    the fixture trees and the HD triplet in worker processes; returns the
+    HD triplet for phase 12."""
+    from videoframeinterpolation_tpu_torch import evaluate
+    from videoframeinterpolation_tpu_torch.eval import benchmarks
+    from videoframeinterpolation_tpu_torch.kernels import deformable_sample
+    from videoframeinterpolation_tpu_torch.tools import fixtures
+
+    hw, n = (256, 448), 64
+    trees = {bench: (tmp / bench, hws, seed) for bench, (hws, seed) in FIXTURE_TREES.items()}
+    (hd_hw, hd_seed) = HD_PAIR
+    start = time.perf_counter()
+    workers = min(8, os.cpu_count() or 1)
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        hd = pool.submit(_write_fixture, ("hd", None, [hd_hw], hd_seed))
+        tree_jobs = [pool.submit(_write_fixture, (b, base, hws, seed))
+                     for b, (base, hws, seed) in trees.items()]
+        items = list(pool.map(_render_scene, [(hw, 42, i) for i in range(n)]))
+        hd = hd.result()
+        for job in tree_jobs:
+            job.result()
+    fixtures.write_snu_triplets(tmp / "snu_hd", [hd])
+    emit({"rendered": {"scenes": n, "trees": len(tree_jobs) + 1, "workers": workers,
+                       "seconds": round(time.perf_counter() - start, 3)}})
+    scenes = {(hw, 42, i): item for i, item in enumerate(items)}
+
+    # validate_synthetic through the entry point, 64 scenes; the first
+    # SYNTHETIC_ITEMS of them (the same batches of 4) are held to JAX.
+    per_item = []
+    scores = benchmarks._scores
+
+    def recording(pred, gt, report_ssim, psnrs, ssims):
+        n0 = len(psnrs)
+        scores(pred, gt, report_ssim, psnrs, ssims)
+        per_item.extend(zip(psnrs[n0:], ssims[n0:]))
+
+    benchmarks._scores = recording
+    try:
+        with cached_scenes(scenes):
+            for name, (ref_psnr, ref_ssim) in JAX_SYNTHETIC.items():
+                per_item.clear()
+                deformable_sample.launches = deformable_sample.bf16_launches = 0
+                start = time.perf_counter()
+                res = evaluate.main(["--config", name, "--benchmark", "synthetic", "--ssim",
+                                     "--device", "cuda"])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - start
+                path_launches[f"evaluate_synthetic_{name}"] = deformable_sample.launches
+                head = per_item[:SYNTHETIC_ITEMS]
+                got_psnr = float(np.mean([p for p, _ in head]))
+                got_ssim = float(np.mean([q for _, q in head]))
+                emit({"evaluate_synthetic": name, "items": len(per_item), **res,
+                      f"first_{SYNTHETIC_ITEMS}": {"psnr": got_psnr, "ssim": got_ssim},
+                      "jax_cpu_fp32": {"psnr": ref_psnr, "ssim": ref_ssim},
+                      "psnr_minus_jax_cpu": got_psnr - ref_psnr,
+                      "ssim_minus_jax_cpu": got_ssim - ref_ssim,
+                      "launches": deformable_sample.launches,
+                      "bf16_launches": deformable_sample.bf16_launches,
+                      "seconds": round(seconds, 3)})
+                if (len(per_item) != n or deformable_sample.launches != 3 * n // 4
+                        or deformable_sample.bf16_launches):
+                    raise AssertionError(f"synthetic {name}: {len(per_item)} items, "
+                                         f"{deformable_sample.launches} launches "
+                                         f"({deformable_sample.bf16_launches} bf16); expected "
+                                         f"{n} items and 3 fp32 launches per batch of 4")
+                if not (abs(got_psnr - ref_psnr) <= EVAL_PSNR_TOL
+                        and abs(got_ssim - ref_ssim) <= EVAL_SSIM_TOL):
+                    raise AssertionError(f"synthetic {name}: PSNR {got_psnr} / SSIM {got_ssim} "
+                                         f"against JAX's CPU fp32 {ref_psnr} / {ref_ssim}")
+    finally:
+        benchmarks._scores = scores
+
+    # The dataset loops on the fixture trees, the shipped student in fp32.
+    for bench, (base, hws, _) in trees.items():
+        # Vimeo90K in batches of 4; UCF101 one triplet per forward; SNU-FILM
+        # one triplet in each of its first 3 levels and every one in the last.
+        forwards = {"vimeo90k": -(-len(hws) // 4), "ucf101": len(hws), "snu": 3 + len(hws)}[bench]
+        deformable_sample.launches = deformable_sample.bf16_launches = 0
+        with working_directory(base):
+            res = evaluate.main(["--benchmark", bench, "--device", "cuda"])
+        torch.cuda.synchronize()
+        path_launches[f"evaluate_{bench}"] = deformable_sample.launches
+        ref = JAX_TREES[bench]
+        diffs = {k: res[k] - v for k, v in ref.items()} if res.keys() == ref.keys() else None
+        emit({"evaluate_tree": bench, **res, "jax_cpu_fp32": ref, "minus_jax_cpu": diffs,
+              "launches": deformable_sample.launches})
+        if diffs is None or max(abs(d) for d in diffs.values()) > EVAL_PSNR_TOL:
+            raise AssertionError(f"{bench} tree: {res} against JAX's CPU fp32 {ref}")
+        if deformable_sample.launches != 3 * forwards or deformable_sample.bf16_launches:
+            raise AssertionError(f"{bench} tree: {deformable_sample.launches} launches; "
+                                 f"expected {3 * forwards} fp32")
+    return hd
+
+
+def check_serve_hd(tmp: Path, hd, model, card: str, path_launches: dict) -> None:
+    """Phase 12 (see the module docstring)."""
+    from videoframeinterpolation_tpu_torch import evaluate, interpolate
+    from videoframeinterpolation_tpu_torch.config import DAT_fast
+    from videoframeinterpolation_tpu_torch.data import decode_png, encode_png
+    from videoframeinterpolation_tpu_torch.interpolate import SHIPPED_STUDENT, load_model
+    from videoframeinterpolation_tpu_torch.kernels import deformable_sample
+    from videoframeinterpolation_tpu_torch.tools.perf import timing
+
+    f0, mid, f1 = hd
+    pair = tmp / "hd_pair"
+    pair.mkdir()
+    for name, img in (("000.png", f0), ("001.png", f1)):
+        (pair / name).write_bytes(encode_png(img))
+    made = []
+    make_infer = interpolate.make_infer
+
+    def recording_make_infer(m, tile=0):
+        made.append(make_infer(m, tile))
+        return made[-1]
+
+    interpolate.make_infer = evaluate.make_infer = recording_make_infer
+    try:
+        # bf16, pair mode through the entry point.
+        out = tmp / "hd_mid.png"
+        deformable_sample.launches = deformable_sample.bf16_launches = 0
+        interpolate.main(["--frame0", str(pair / "000.png"), "--frame1", str(pair / "001.png"),
+                          "--out", str(out), "--tile", str(HD_TILE), "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches, bf16_launches = deformable_sample.launches, deformable_sample.bf16_launches
+        path_launches["serve_hd_tiled"] = launches
+        tiled_plans = list(made[-1].plans)
+        tiled = decode_png(out.read_bytes())
+        full = interpolate.interp_pair(model, f0, f1, 0.5)
+        emit({"serve_hd": "interpolate --tile", "hw": list(f0.shape[:2]), "dtype": "bfloat16",
+              "plans": tiled_plans, "jax_plan": JAX_HD_PLAN["interpolate"],
+              "launches": launches, "bf16_launches": bf16_launches,
+              "psnr_tiled_vs_full_frame": psnr(tiled, full),
+              "psnr_tiled_vs_true_mid": psnr(tiled, mid), "psnr_full_vs_true_mid": psnr(full, mid)})
+        if tiled_plans != [JAX_HD_PLAN["interpolate"]] or tiled.shape != f0.shape:
+            raise AssertionError(f"HD bf16: plans {tiled_plans} against JAX's "
+                                 f"{JAX_HD_PLAN['interpolate']}, frame {tiled.shape}")
+        if full.shape != f0.shape or not psnr(tiled, full) >= HD_SEAM_PSNR:
+            raise AssertionError(f"HD bf16: full frame {full.shape}, tiled against it "
+                                 f"{psnr(tiled, full)} dB < {HD_SEAM_PSNR}")
+        if (launches, bf16_launches) != (6, 6):
+            raise AssertionError(f"HD bf16: {launches} launches "
+                                 f"({bf16_launches} bf16); expected 3 for the probe and 3 for "
+                                 "the one chunk of tiles, in bf16")
+
+        # ms per PNG decode on this machine's host (the port's own files: filter 0).
+        vimeo = tmp / "vimeo90k" / "datasets" / "vimeo_triplet" / "sequences"
+        decode_ms = {}
+        for size, path in (("1280x720", pair / "000.png"),
+                           ("448x256", sorted(vimeo.glob("*/*/im1.png"))[0])):
+            data = path.read_bytes()
+            start = time.perf_counter()
+            for _ in range(5):
+                decode_png(data)
+            decode_ms[size] = (time.perf_counter() - start) * 1e3 / 5
+        emit({"png_decode_ms_host": decode_ms, "host_of": card})
+
+        # ms per pair on the card, tiled and full-frame, bf16.
+        x0, x1 = (torch.from_numpy(f.astype(np.float32) / 255.0)[None].cuda() for f in (f0, f1))
+        t5 = torch.full((1, 1, 1, 1), 0.5, device="cuda")
+        infer = make_infer(model, HD_TILE)
+        with torch.inference_mode():
+            times = {"tiled": timing.loop_ms(lambda: infer(x0, x1, t5), 5, warmup=2) / 5,
+                     "full_frame": timing.loop_ms(lambda: model(x0, x1, t5), 5, warmup=2) / 5}
+        emit({"ms_per_pair_720x1280_bf16": times, "card": card})
+
+        # fp32: the SNU-FILM loop over the HD triplet through the entry point.
+        made.clear()
+        deformable_sample.launches = deformable_sample.bf16_launches = 0
+        with working_directory(tmp / "snu_hd"):
+            res = evaluate.main(["--benchmark", "snu", "--tile", str(HD_TILE),
+                                 "--device", "cuda"])
+        torch.cuda.synchronize()
+        path_launches["evaluate_snu_tile"] = deformable_sample.launches
+        eval_plans = list(made[-1].plans)
+        emit({"serve_hd": "evaluate --benchmark snu --tile", "dtype": "float32", **res,
+              "plans": eval_plans, "jax_plan": JAX_HD_PLAN["evaluate"],
+              "launches": deformable_sample.launches,
+              "bf16_launches": deformable_sample.bf16_launches})
+        if eval_plans != [JAX_HD_PLAN["evaluate"]]:
+            raise AssertionError(f"HD fp32: plans {eval_plans} against JAX's "
+                                 f"{JAX_HD_PLAN['evaluate']}")
+        if deformable_sample.launches != 24 or deformable_sample.bf16_launches:
+            raise AssertionError(f"HD fp32 loop: {deformable_sample.launches} launches; expected "
+                                 "24 fp32 (4 levels, 3 for the probe and 3 for the tiles)")
+
+        # The tiled fp32 frame, card against the CPU.
+        fp32 = dataclasses.replace(DAT_fast, compute_dtype="float32")
+        frames, plans, seconds = {}, {}, {}
+        for device in ("cuda", "cpu"):
+            torch.set_num_threads((os.cpu_count() or 1) if device == "cpu" else 1)
+            m = load_model(fp32, SHIPPED_STUDENT, device=device)
+            infer = make_infer(m, HD_TILE)
+            start = time.perf_counter()
+            with torch.inference_mode():
+                frames[device] = infer(x0.to(device), x1.to(device), t5.to(device)).cpu()
+            seconds[device] = round(time.perf_counter() - start, 3)
+            plans[device] = list(infer.plans)
+            del m, infer
+        torch.set_num_threads(1)
+        err = (frames["cuda"] - frames["cpu"]).abs().max().item()
+        emit({"serve_hd_fp32_tiled_card_vs_cpu": err, "tol": E2E_TOL, "plans": plans,
+              "seconds": seconds})
+        if not (err <= E2E_TOL and torch.isfinite(frames["cuda"]).all()
+                and frames["cuda"].shape == (1, *f0.shape)
+                and plans["cuda"] == plans["cpu"] == [JAX_HD_PLAN["evaluate"]]):
+            raise AssertionError(f"HD fp32 tiled frame, card vs CPU: {err} > {E2E_TOL}, "
+                                 f"or plans {plans}")
+
+        # Every instant of a factor-4 direct sequence, tiled.
+        out_dir = tmp / "hd_direct"
+        deformable_sample.launches = deformable_sample.bf16_launches = 0
+        interpolate.main(["--in_dir", str(pair), "--out_dir", str(out_dir), "--factor", "4",
+                          "--mode", "direct", "--tile", str(HD_TILE), "--device", "cuda"])
+        torch.cuda.synchronize()
+        path_launches["serve_hd_direct"] = deformable_sample.launches
+        written = sorted(p.name for p in out_dir.iterdir())
+        shapes = {decode_png((out_dir / n).read_bytes()).shape for n in written}
+        emit({"serve_hd": "interpolate --mode direct --factor 4 --tile", "frames_out": len(written),
+              "shapes": sorted(shapes), "launches": deformable_sample.launches,
+              "bf16_launches": deformable_sample.bf16_launches})
+        if written != [f"{i:06d}.png" for i in range(5)] or shapes != {f0.shape}:
+            raise AssertionError(f"HD direct: wrote {written} of {shapes}")
+        if deformable_sample.bf16_launches != 12:
+            raise AssertionError(f"HD direct: {deformable_sample.bf16_launches} bf16 launches; "
+                                 "expected 12 (3 for the probe, 9 for 3 instants of one chunk)")
+    finally:
+        interpolate.make_infer = evaluate.make_infer = make_infer
+
 
 def check_card_figures() -> None:
     """The card's figures that ``kernels/build.py`` compiles the kernels

@@ -118,3 +118,14 @@ def test_checkpoint_matches_jax_in_bf16(name):
           f"against JAX's bf16-vs-fp32 gap {gap:.3e}: {err.mean() / gap:.3f} of it")
     assert out.dtype == np.float32 and out.shape == ref.shape == (1, 64, 64, 3)
     assert err.mean() <= BF16_GAP_SHARE * gap
+
+
+@pytest.mark.parametrize("name", list(YAMLS))
+def test_preset_has_the_jax_evaluation_fields(name):
+    """The dataset roots and the checkpoint benchmark the evaluation entry
+    point reads, with the JAX config's values (its defaults: no YAML sets
+    them)."""
+    preset, ref = config.PRESETS[name].config, jax_config(name)
+    fields = ("root", "ucf101_root", "snu_root", "save_best_benchmark")
+    assert {f: getattr(preset, f) for f in fields} == {f: getattr(ref, f) for f in fields}
+    assert preset.root == "datasets/vimeo_triplet" and preset.snu_root == "datasets/SNU-FILM"

@@ -1,7 +1,8 @@
 """Typed model configuration (counterpart of ``videoframeinterpolation_tpu/config``).
 
-Only the fields the serving path and the quality study's training recipe
-(``tools/head_to_head.py``) read are kept, with the JAX defaults. There is
+Only the fields the serving path, the evaluation entry point (its dataset
+roots) and the quality study's training recipe (``tools/head_to_head.py``)
+read are kept, with the JAX defaults. There is
 no YAML parser:
 configurations are presets written out in Python, and a test holds each
 preset against the JAX ``Config`` loaded from its YAML file.
@@ -42,6 +43,12 @@ class Config:
     warmup_steps: int = 2000
     distill_lambda: Optional[float] = 0.01
     grad_clip: Optional[float] = None
+    # Data and validation (JAX Config:88,117-123): the benchmark roots the
+    # evaluation entry point reads, relative to the working directory.
+    root: str = "datasets/vimeo_triplet"
+    save_best_benchmark: str = "vimeo90k"
+    ucf101_root: str = "datasets/UCF-101/test"
+    snu_root: str = "datasets/SNU-FILM"
 
 
 # configs/DAT_fast.yaml: the shipped flagship (shared offsets, 8/8/2 samples).

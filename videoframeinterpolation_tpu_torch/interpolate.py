@@ -17,19 +17,28 @@ spanning the served grid (e.g. ``tools/quality/head_to_head.py --random_t
 the grid; otherwise prefer the default recursive mode, which decodes
 every frame at the validated t = 0.5.
 
+``--tile N`` tiles frames larger than N pixels, in pair mode and in both
+sequence modes, with an overlap sized per pair from the model's own flow
+estimate (:mod:`.parallel.spatial`): ``make_flow_aware_tiled`` in pair
+and recursive mode, ``make_flow_aware_multi_t`` in direct mode (every
+instant of a tile decoded from one encoder run), as the JAX CLI does.
+
 Usage::
 
     python -m videoframeinterpolation_tpu_torch.interpolate [--config DAT_fast] \
-        --frame0 a.npy --frame1 b.npy --out mid.npy [--t 0.5] [--device cuda]
+        --frame0 a.png --frame1 b.png --out mid.png [--t 0.5] [--tile 512] [--device cuda]
     python -m videoframeinterpolation_tpu_torch.interpolate [--config DAT_fast] \
-        --in_dir frames/ --out_dir out/ --factor 4 [--mode recursive|direct]
+        --in_dir frames/ --out_dir out/ --factor 4 [--mode recursive|direct] [--tile 512]
 
-Frames are ``(H, W, 3)`` uint8 ``.npy`` arrays of any H and W (they are
-padded to a multiple of 16). In sequence mode the ``.npy`` files of
-``--in_dir`` are read in sorted order and the output is written as
-``%06d.npy``. ``--config`` names a preset of :data:`..config.PRESETS`;
-``--ckpt`` defaults to its committed checkpoint, and may name another flax
-msgpack checkpoint of the same architecture.
+Frames are ``(H, W, 3)`` uint8 images of any H and W (they are padded to a
+multiple of 16), as 8-bit RGB ``.png`` files (read and written by the
+port's own codec, :mod:`.data.png`) or ``.npy`` arrays; a frame is written
+in the format its name ends in. In sequence mode the ``.png`` or ``.npy``
+files of ``--in_dir`` (one format) are read in sorted order and the output
+is written as ``%06d.png`` (``%06d.npy`` for ``.npy`` frames).
+``--config`` names a preset of :data:`..config.PRESETS`; ``--ckpt``
+defaults to its committed checkpoint, and may name another flax msgpack
+checkpoint of the same architecture.
 
 :func:`load_model` serves a config in its ``compute_dtype``, as the JAX
 CLI does: the presets (their YAMLs) in bf16, a config with
@@ -47,10 +56,13 @@ import numpy as np
 import torch
 
 from .config import PRESETS, Config
-from .data import InputPadder
+from .data import InputPadder, decode_png, encode_png
 from .interop import params_from_flax
 from .models import create_model, multi_t_apply
+from .parallel.spatial import make_flow_aware_multi_t, make_flow_aware_tiled
 from .train import read_flax_msgpack
+
+FRAME_SUFFIXES = (".png", ".npy")
 
 SHIPPED_STUDENT = PRESETS["DAT_fast"].ckpt
 
@@ -76,6 +88,51 @@ def load_model(cfg: Config, ckpt: str | Path, device: str = "cuda") -> torch.nn.
     return model.to(device).eval()
 
 
+def read_frame(path: str | Path) -> np.ndarray:
+    """A frame from a ``.png`` or ``.npy`` file."""
+    path = Path(path)
+    if path.suffix.lower() == ".png":
+        return decode_png(path.read_bytes(), str(path))
+    if path.suffix.lower() == ".npy":
+        return np.load(path)
+    raise SystemExit(f"{path}: frames are .png or .npy files")
+
+
+def write_frame(path: str | Path, img: np.ndarray) -> None:
+    """Write a uint8 frame as ``.png`` or ``.npy``, by the name's suffix."""
+    path = Path(path)
+    if path.suffix.lower() == ".png":
+        path.write_bytes(encode_png(img))
+    elif path.suffix.lower() == ".npy":
+        np.save(path, img)
+    else:
+        raise SystemExit(f"{path}: frames are written as .png or .npy files")
+
+
+def _train_apply(m, a, b, t, train):
+    return m(a, b, t, train=train)
+
+
+def make_infer(model: torch.nn.Module, tile: int = 0):
+    """``infer(x0, x1, t)``: the model's forward, or with ``tile`` its
+    flow-aware tiled forward (:func:`..parallel.spatial.make_flow_aware_tiled`,
+    probed through the model's ``train=True`` flow pyramids)."""
+    if not tile:
+        return model
+    return make_flow_aware_tiled(lambda m, a, b, t: m(a, b, t), model, tile,
+                                 train_apply_fn=_train_apply)
+
+
+def make_multi_infer(model: torch.nn.Module, ts, tile: int = 0):
+    """``multi_infer(x0, x1) -> (len(ts), B, H, W, 3)`` through
+    :func:`..models.multi_t_apply`, with ``tile`` flow-aware and tiled
+    (:func:`..parallel.spatial.make_flow_aware_multi_t`)."""
+    if not tile:
+        return lambda a, b: multi_t_apply(model, a, b, ts)
+    return make_flow_aware_multi_t(lambda m, a, b: multi_t_apply(m, a, b, ts), model, tile, ts,
+                                   train_apply_fn=_train_apply)
+
+
 def _to_uint8(pred: torch.Tensor) -> np.ndarray:
     """Quantise one ``(H, W, 3)`` frame in [0, 1] as the JAX CLI does."""
     return (np.clip(pred.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
@@ -94,46 +151,52 @@ def _padded_pair(model: torch.nn.Module, img0: np.ndarray, img1: np.ndarray):
 
 @torch.inference_mode()
 def interp_pair(model: torch.nn.Module, img0: np.ndarray, img1: np.ndarray,
-                t: float = 0.5) -> np.ndarray:
+                t: float = 0.5, infer=None) -> np.ndarray:
     """One ``(H, W, 3)`` uint8 frame at instant ``t`` between two: pad to a
-    multiple of 16, infer, unpad, and quantise as the JAX CLI does."""
+    multiple of 16, infer (``model``'s forward, or ``infer(x0, x1, t)``
+    such as :func:`make_infer` gives), unpad, and quantise as the JAX CLI
+    does."""
     x0p, x1p, padder = _padded_pair(model, img0, img1)
     tt = torch.full((1, 1, 1, 1), t, dtype=torch.float32, device=x0p.device)
-    return _to_uint8(padder.unpad(model(x0p, x1p, tt))[0])
+    return _to_uint8(padder.unpad((infer or model)(x0p, x1p, tt))[0])
 
 
 @torch.inference_mode()
 def interp_pair_direct(model: torch.nn.Module, img0: np.ndarray, img1: np.ndarray,
-                       ts) -> list[np.ndarray]:
+                       ts, multi_infer=None) -> list[np.ndarray]:
     """The uint8 frames at every instant of ``ts`` between two, the
-    encoder run once (:func:`..models.multi_t_apply`)."""
+    encoder run once (:func:`..models.multi_t_apply`, or ``multi_infer``
+    such as :func:`make_multi_infer` gives)."""
     x0p, x1p, padder = _padded_pair(model, img0, img1)
-    preds = multi_t_apply(model, x0p, x1p, ts)   # (len(ts), 1, Hp, Wp, 3)
+    preds = (multi_infer or make_multi_infer(model, ts))(x0p, x1p)   # (len(ts), 1, Hp, Wp, 3)
     return [_to_uint8(padder.unpad(p)[0]) for p in preds]
 
 
 def upsample_sequence(model: torch.nn.Module, seq: list[np.ndarray], factor: int,
-                      mode: str = "recursive") -> list[np.ndarray]:
+                      mode: str = "recursive", tile: int = 0) -> list[np.ndarray]:
     """``seq`` with ``factor - 1`` frames inserted between each pair:
     ``(len(seq) - 1) * factor + 1`` frames. ``recursive`` runs ``log2
     factor`` levels of t = 0.5 over the growing sequence (``factor`` a
     power of two); ``direct`` decodes the instants ``(i+1)/factor`` from
-    each original pair, the encoder run once per pair."""
+    each original pair, the encoder run once per pair. ``tile`` tiles
+    large frames (:func:`make_infer`, :func:`make_multi_infer`)."""
     if mode == "direct":
         ts = tuple((i + 1) / factor for i in range(factor - 1))
+        multi_infer = make_multi_infer(model, ts, tile)
         out = []
         for a, b in zip(seq[:-1], seq[1:]):
             out.append(a)
-            out.extend(interp_pair_direct(model, a, b, ts))
+            out.extend(interp_pair_direct(model, a, b, ts, multi_infer))
         out.append(seq[-1])
         return out
     if mode != "recursive":
         raise ValueError(f"unknown mode {mode!r}; expected 'recursive' or 'direct'")
+    infer = make_infer(model, tile)
     for _ in range(int(np.log2(factor))):
         out = []
         for a, b in zip(seq[:-1], seq[1:]):
             out.append(a)
-            out.append(interp_pair(model, a, b, 0.5))
+            out.append(interp_pair(model, a, b, 0.5, infer))
         out.append(seq[-1])
         seq = out
     return seq
@@ -154,11 +217,12 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--config", choices=sorted(PRESETS), default="DAT_fast")
     parser.add_argument("--ckpt", default=None,
                         help="flax msgpack checkpoint (default: the preset's)")
-    parser.add_argument("--frame0", help="pair mode: (H, W, 3) uint8 .npy")
-    parser.add_argument("--frame1", help="pair mode: (H, W, 3) uint8 .npy")
-    parser.add_argument("--out", help="pair mode: output .npy")
+    parser.add_argument("--frame0", help="pair mode: an RGB .png or (H, W, 3) uint8 .npy")
+    parser.add_argument("--frame1", help="pair mode: an RGB .png or (H, W, 3) uint8 .npy")
+    parser.add_argument("--out", help="pair mode: output .png or .npy")
     parser.add_argument("--t", type=float, default=0.5)
-    parser.add_argument("--in_dir", help="sequence mode: dir of (H, W, 3) uint8 .npy frames")
+    parser.add_argument("--in_dir", help="sequence mode: dir of RGB .png or (H, W, 3) uint8 "
+                                         ".npy frames")
     parser.add_argument("--out_dir", help="sequence mode: output dir")
     parser.add_argument("--factor", type=int, default=2,
                         help="sequence mode: frame-rate multiplier "
@@ -168,6 +232,8 @@ def main(argv: list[str] | None = None) -> None:
                              "levels (later levels interpolate generated frames). "
                              "direct: all factor-1 instants from the ORIGINAL pair, "
                              "the t-invariant encoder run once per pair")
+    parser.add_argument("--tile", type=int, default=0,
+                        help="spatial tile size for HD inputs (0 = off)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
@@ -179,17 +245,21 @@ def main(argv: list[str] | None = None) -> None:
         if args.mode == "direct" and args.factor < 2:
             raise SystemExit("--mode direct needs --factor >= 2 "
                              "(factor 1 inserts no frames)")
-        frames = sorted(p for p in Path(args.in_dir).iterdir() if p.suffix == ".npy")
-        seq = [np.load(f) for f in frames]
-        if len(seq) < 2:
-            raise SystemExit(f"--in_dir {args.in_dir}: needs at least 2 .npy frames, "
-                             f"found {len(seq)}")
+        frames = sorted(p for p in Path(args.in_dir).iterdir()
+                        if p.suffix.lower() in FRAME_SUFFIXES)
+        suffixes = {p.suffix.lower() for p in frames}
+        if len(suffixes) > 1:
+            raise SystemExit(f"--in_dir {args.in_dir}: mixes .png and .npy frames")
+        if len(frames) < 2:
+            raise SystemExit(f"--in_dir {args.in_dir}: needs at least 2 .png or .npy frames, "
+                             f"found {len(frames)}")
+        seq = [read_frame(f) for f in frames]
         _check_frames([(str(f), img) for f, img in zip(frames, seq)])
     elif not (args.frame0 and args.frame1 and args.out):
         raise SystemExit("pair mode needs --frame0, --frame1 and --out "
                          "(or --in_dir for sequence mode)")
     else:
-        img0, img1 = np.load(args.frame0), np.load(args.frame1)
+        img0, img1 = read_frame(args.frame0), read_frame(args.frame1)
         _check_frames([("--frame0", img0), ("--frame1", img1)])
 
     preset = PRESETS[args.config]
@@ -197,12 +267,14 @@ def main(argv: list[str] | None = None) -> None:
     if args.in_dir:
         out_dir = Path(args.out_dir or "interp_out")
         out_dir.mkdir(parents=True, exist_ok=True)
-        seq = upsample_sequence(model, seq, args.factor, args.mode)
+        seq = upsample_sequence(model, seq, args.factor, args.mode, args.tile)
+        suffix = frames[0].suffix.lower()
         for i, fr in enumerate(seq):
-            np.save(out_dir / f"{i:06d}.npy", fr)
+            write_frame(out_dir / f"{i:06d}{suffix}", fr)
         print(f"wrote {len(seq)} frames to {out_dir}")
     else:
-        np.save(args.out, interp_pair(model, img0, img1, args.t))
+        write_frame(args.out, interp_pair(model, img0, img1, args.t,
+                                          make_infer(model, args.tile)))
         print(f"wrote {args.out}")
 
 

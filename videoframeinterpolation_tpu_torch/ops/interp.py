@@ -110,6 +110,41 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     return torch.einsum("ow,bhwc->bhoc", mw, x)
 
 
+@functools.lru_cache(maxsize=64)
+def _antialias_weights(in_size: int, out_size: int) -> np.ndarray:
+    """Static ``(out_size, in_size)`` matrix of ``jax.image.resize(...,
+    "linear")`` along one axis: half-pixel centres, a triangle kernel
+    widened by ``in / out`` when shrinking, each row normalised to sum 1,
+    rows whose sample lies outside the input zero. Computed in float32, as
+    JAX computes it (``jax._src.image.scale.compute_weight_mat``)."""
+    inv_scale = np.float32(1.0 / (out_size / in_size))
+    kernel_scale = np.maximum(inv_scale, np.float32(1.0))
+    sample = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale
+              - np.float32(0.5))
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
+    weights = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+    total = weights.sum(axis=0, keepdims=True, dtype=np.float32)
+    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, np.float32(1.0)), np.float32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], weights, np.float32(0.0)).T.astype(np.float32)
+
+
+def resize_linear_antialias(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(x, (B, *out_hw, C), "linear")`` of ``(B, H, W, C)``:
+    separable, with :func:`_antialias_weights` along H and W (an axis whose
+    size is unchanged is left alone, as JAX leaves it)."""
+    B, H, W, C = x.shape
+    Ho, Wo = out_hw
+    if Ho != H:
+        mh = torch.from_numpy(_antialias_weights(H, Ho)).to(x.device, x.dtype)
+        x = torch.einsum("oh,bhwc->bowc", mh, x)
+    if Wo != W:
+        mw = torch.from_numpy(_antialias_weights(W, Wo)).to(x.device, x.dtype)
+        x = torch.einsum("ow,bhwc->bhoc", mw, x)
+    return x
+
+
 def scale_resize(x: torch.Tensor, scale_factor: float) -> torch.Tensor:
     """Scale the spatial dims by ``scale_factor``; flow magnitudes are not
     rescaled (callers multiply where they mean to)."""
