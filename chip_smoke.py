@@ -116,10 +116,34 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      4 levels), the tiled fp32 frame on the card within 1e-3 max abs of the
      CPU's, and ``--mode direct --factor 4 --tile 512`` writing all 5
      frames (12 bf16 launches: the probe, 3 instants of one chunk);
- 13. shapes: every level shape at which phases 3-12 launched the sampler
-     (recorded at each launch) is listed; any that phase 2 did not hold is
-     held here as phase 2 holds its cases (one needing 64-bit indices
-     fails: it belongs in ``WIDE_CASES``).
+ 14. trainer (runs before 13): the production trainer through its entry
+     point (``python -m videoframeinterpolation_tpu_torch.train``'s
+     ``main``, in a child process: ``python3 chip_smoke.py --child``) on a
+     seeded Vimeo90K-layout tree (``TRAINER_TREE``: 96 training triplets
+     with their true flows and 8 test triplets at 256x448, rendered in
+     worker processes) with ``configs/DAT_fast_distill.yaml`` and the
+     committed teacher. Run A: the YAML's recipe at full width, batch 12,
+     crop 256, bf16, 8 data workers, for 2 epochs of 8 steps, its cadences
+     cut (``RUN_A``) and ``PROFILE_STEPS`` traced: per step 3 student
+     forward, 3 teacher forward and 3 backward launches (all on the
+     shared-memory path), 3 per validation batch and image summary, none
+     in fp32; ``latest``, ``epoch_001``, ``epoch_002`` and ``best_vimeo90k``
+     with JAX's metadata, each restoring bit for bit; ms per step (median
+     and spread after the first 3 steps, the profiled ones left out), the
+     ``data_time`` share, peak memory, the device's busy share and top
+     operations of the traced steps. Runs B and C (``RUN_BC``: one epoch at
+     one data worker): B is sent SIGTERM once its log shows step
+     ``SIGTERM_AT_STEP``, exits 0 with ``latest`` saved, and ``--resume
+     latest`` finishes it; its final parameters are held to C's within
+     twice the gap between C and a second uninterrupted run (the card sums
+     ``grad_feat`` in a varying order). ``evaluate --exp_name`` on the card
+     in fp32 within 0.005 dB and 5e-5 SSIM of the same on the CPU;
+ 13. shapes (runs last): every level shape at which phases 3-12 and 14
+     launched the sampler (recorded at each launch, the children's too) is
+     listed; any that phase 2 did not hold is held here as phase 2 holds
+     its cases (one needing 64-bit indices fails: it belongs in
+     ``WIDE_CASES``); so is every level shape of a backward launch that
+     ``BACKWARD_CASES`` does not list, on its planned path.
 
 Each path's sampler launches (forward and backward) are counted from 0
 just before it runs and read just after; the kernels line gives them per
@@ -148,6 +172,7 @@ import dataclasses
 import json
 import multiprocessing
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -276,6 +301,26 @@ STEP_LOSS_REL_TOL = 1e-5   # (a): card vs CPU, fp32
 # that spread is measured in the run and printed beside the card's.
 STEP_GRAD_TOL = 1e-4
 STEP_STATE_TOL = 1e-6      # parameters, mu, nu, absolute
+# Phase 14 (trainer): a seeded tree in Vimeo90K's layout (training triplets
+# of the generator's training split with their true flows at t = 0.5, test
+# triplets of its held-out split), written by tools/fixtures.py.
+TRAINER_TREE = {"train": 96, "test": 8, "hw": (256, 448), "seed": 31}
+TRAINER_RECIPE = "configs/DAT_fast_distill.yaml"
+TRAINER_TEACHER = "configs/teachers/DATwConstantnCv1_shared_s8-16-8.best.ckpt"
+# Run A: the YAML's recipe (full width, batch 12, crop 256, bf16, 8 data
+# workers, the teacher in the loop) for 2 epochs of 8 steps, its cadences
+# cut so that every save, validation and image branch fires; profiled over
+# PROFILE_STEPS.
+RUN_A = ["num_epochs=2", "save_latest_freq=5", "save_every_freq_epoch=1", "valid_freq_epoch=1",
+         "img_summary_freq=8", "metric_summary_freq=1"]
+PROFILE_STEPS = (5, 8)
+# Runs B and C: one epoch at one data worker (a reproducible data stream),
+# no validation; B is sent SIGTERM once its log shows step SIGTERM_AT_STEP,
+# then resumed from 'latest'.
+RUN_BC = ["num_epochs=1", "num_workers=1", "metric_summary_freq=1", "save_latest_freq=1000",
+          "save_every_freq_epoch=1", "val_datasets=[]"]
+SIGTERM_AT_STEP = 5
+DATA_TIMED_ITEMS = 48   # training items timed on the host, per data path
 # An index of K x N >= 2^31 elements (64-bit indices): 2^24 + 1 rows of a
 # 1024-row bf16 table, checked at its first and last rows.
 ROW_WIDE = (1024, 128, 2 ** 24 + 1, torch.bfloat16)
@@ -426,19 +471,25 @@ def sampler_ref(feat, flow, res):
     return ref.to(feat.dtype).float()
 
 
-def record_level_shapes(window_sample) -> set:
-    """Collect the ``level_shape`` of every forward launch of the sampler
-    from now on (by wrapping the module's launch, which the wrapper and the
-    autograd function call); returns the set it fills."""
-    shapes = set()
-    launch = window_sample._launch
+def record_level_shapes(window_sample) -> tuple[set, set]:
+    """Collect the ``level_shape`` of every forward and every backward
+    launch of the sampler from now on (by wrapping the module's launches,
+    which the wrapper and the autograd function call); returns the two sets
+    it fills."""
+    forward, backward = set(), set()
+    launch, launch_backward = window_sample._launch, window_sample._launch_backward
 
     def recording(feat, flow, residual, n_groups, *args, **kwargs):
-        shapes.add(level_shape(feat, residual))
+        forward.add(level_shape(feat, residual))
         return launch(feat, flow, residual, n_groups, *args, **kwargs)
 
+    def recording_backward(feat, flow, residual, grad_out, n_groups, *args, **kwargs):
+        backward.add(level_shape(feat, residual))
+        return launch_backward(feat, flow, residual, grad_out, n_groups, *args, **kwargs)
+
     window_sample._launch = recording
-    return shapes
+    window_sample._launch_backward = recording_backward
+    return forward, backward
 
 
 def at_offset(x: torch.Tensor, offset: int) -> torch.Tensor:
@@ -551,7 +602,7 @@ def main() -> int:
         bwd_err = check_backward(gen)
     # From here on, every level shape a path launches the sampler at is
     # recorded; phase 13 holds those that phase 2 did not.
-    launched_shapes = record_level_shapes(window_sample)
+    launched_shapes, launched_backward = record_level_shapes(window_sample)
 
     rng = np.random.default_rng(0)
     tex = smooth_texture(rng, 320, 512)
@@ -666,6 +717,12 @@ def main() -> int:
         with Phase("serve_hd"):
             check_serve_hd(Path(tmp), hd, model, card, path_launches)
 
+    with tempfile.TemporaryDirectory(prefix="vfi_trainer_") as tmp:
+        with Phase("trainer"):
+            check_trainer(Path(tmp), card, path_launches, launched_shapes, launched_backward)
+
+    # Phase 13 runs last, so that it holds the shapes of every path, phase
+    # 14's included.
     with Phase("shapes"):
         late = sorted(launched_shapes - checked_shapes)
         emit({"launched_level_shapes": sorted(launched_shapes), "checked_in_phase_2":
@@ -679,6 +736,21 @@ def main() -> int:
                                      set())
             max_err["deformable_sample"] = max(max_err["deformable_sample"], err)
             del inputs
+        # The backward at every level shape a path launched it at and phase
+        # 2 did not hold, on its planned path (offset scale 8, flows of 4 px).
+        held = {case[:6] for case in BACKWARD_CASES.values()}
+        late_bwd = sorted(launched_backward - held)
+        emit({"launched_backward_level_shapes": sorted(launched_backward),
+              "backward_checked_in_phase_2": len(launched_backward & held),
+              "backward_checked_here": late_bwd})
+        for B2, h, w, C, G, S in late_bwd:
+            if _index_bits(B2, h, w, C, G, S) == 64:
+                raise AssertionError(f"a path launched the backward at {(B2, h, w, C, G, S)}, "
+                                     "which needs 64-bit indices: add it to BACKWARD_CASES")
+            errs = check_backward_case(gen, f"launched_{B2}x{h}x{w}x{C}_g{G}_s{S}",
+                                       (B2, h, w, C, G, S, 8.0, 4.0), None)
+            bwd_err = (max(bwd_err[0], errs[0]), max(bwd_err[1], errs[1]))
+        torch.cuda.empty_cache()
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -1234,83 +1306,16 @@ def check_backward(gen) -> tuple[float, float]:
     path ``_backward_plan`` picks (shared memory at every case) and on the
     global path forced, each at the widths the wrapper picks and every
     narrower width on both index widths, against
-    ``deformable_sample_backward_plain``. ``grad_residual`` and
-    ``grad_flow`` (summed without atomics) must be equal bit for bit over
-    two launches of the planned path; ``grad_feat`` (summed with atomics on
-    either path) is held to the tolerance only. Raises if a (path, dtype,
-    width, index width) instance never ran, or if the card's figures are not
-    those the plan reads (:func:`check_card_figures`). Returns the largest
-    fp32 error, absolute and relative to its gradient's max abs."""
-    from videoframeinterpolation_tpu_torch.kernels import (
-        deformable_sample, deformable_sample_backward_plain)
-    from videoframeinterpolation_tpu_torch.kernels.window_sample import (
-        BackwardPlan, _backward_plan, _launch_backward, _vector_bytes)
-    from videoframeinterpolation_tpu_torch.tools.perf.sampler_probe import level_inputs
-
+    ``deformable_sample_backward_plain`` (:func:`check_backward_case`).
+    Raises if a (path, dtype, width, index width) instance never ran, or if
+    the card's figures are not those the plan reads
+    (:func:`check_card_figures`). Returns the largest fp32 error, absolute
+    and relative to its gradient's max abs."""
     check_card_figures()
     reached, worst, worst_abs = set(), 0.0, 0.0
-    for name, (B2, h, w, C, G, S, scale, flow_mag) in BACKWARD_CASES.items():
-        feat, flow, res = level_inputs(gen, B2, h, w, C, G, S, scale, flow_mag)
-        if name == "integer":
-            flow, res = torch.round(flow), torch.round(res)
-        if name == "one_pixel":
-            gy, gx = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float32),
-                                    torch.arange(w, device="cuda", dtype=torch.float32),
-                                    indexing="ij")
-            flow = torch.stack([3.25 - gx, 2.5 - gy], -1).expand(B2, h, w, 2).contiguous()
-        grad_out = torch.randn((B2, S, h * w, C), generator=gen, device="cuda")
-        for dtype in (torch.float32, torch.bfloat16):
-            args = [x.to(dtype).contiguous() for x in (feat, flow, res, grad_out)]
-            ref = deformable_sample_backward_plain(*args, G)
-            plan = _backward_plan(B2, h, w, C, G, S)
-            width0 = _vector_bytes(C, G, args[0].element_size(), args[0].data_ptr(),
-                                   args[3].data_ptr())
-            before = deformable_sample.backward_launches
-            planned = _launch_backward(*args, G)
-            again = _launch_backward(*args, G)
-            checked = {(plan.path, width0, plan.index_bits): planned}
-            for path in dict.fromkeys((plan.path, "global")):
-                forced = plan if path == plan.path else BackwardPlan("global", 0, 0, plan.index_bits)
-                width = width0
-                while width >= args[0].element_size():
-                    for bits in (32, 64):
-                        if (path, width, bits) not in checked:
-                            checked[path, width, bits] = _launch_backward(
-                                *args, G, width, bits, forced)
-                    width //= 2
-            torch.cuda.synchronize()
-            if deformable_sample.backward_launches != before + len(checked) + 1:
-                raise AssertionError(f"backward launches not counted one per call ({name})")
-            repro = torch.equal(planned[1], again[1]) and torch.equal(planned[2], again[2])
-            if not repro:
-                raise AssertionError(f"backward, case {name} {dtype}: grad_flow or "
-                                     "grad_residual differ between two launches")
-            errs = {}
-            for (path, width, bits), got in checked.items():
-                reached.add((path, str(dtype), width, bits))
-                for g, r, which in zip(got, ref, ("feat", "flow", "residual")):
-                    if dtype == torch.float32:
-                        err = (g - r).abs().max().item()
-                        worst_abs = max(worst_abs, err)
-                        scale_ = r.abs().max().item()
-                        ok = err <= BWD_FP32_TOL * scale_
-                        errs[which] = max(errs.get(which, 0.0), err / scale_ if scale_ else err)
-                    else:
-                        err, beyond, ok = bf16_backward_check(g, r)
-                        errs[which] = max(errs.get(which, 0.0), err)
-                        key = f"{which}_beyond_1_ulp"
-                        errs[key] = errs.get(key, 0) + beyond
-                    if not ok:
-                        raise AssertionError(f"backward vs plain, case {name} {dtype} {path} "
-                                             f"V={width} {bits}-bit, grad_{which}: {err}")
-            if dtype == torch.float32:
-                worst = max(worst, *errs.values())
-            emit({"case": f"backward_{name}", "dtype": str(dtype), "shape": list(res.shape),
-                  "plan": plan._asdict(), "vector_bytes": width0,
-                  "instances": sorted(checked), "coordinate_gradients_reproducible": repro,
-                  ("max_err_over_max_abs" if dtype == torch.float32 else "max_err_in_ulps"):
-                  errs})
-        del feat, flow, res, grad_out, args, ref, checked, planned, again
+    for name, case in BACKWARD_CASES.items():
+        err_abs, err = check_backward_case(gen, name, case, reached)
+        worst_abs, worst = max(worst_abs, err_abs), max(worst, err)
     need = {(path, dt, v, b) for path in ("smem", "global") for b in (32, 64)
             for dt, widths in (("torch.float32", (16, 8, 4)), ("torch.bfloat16", (16, 8, 4, 2)))
             for v in widths}
@@ -1319,6 +1324,90 @@ def check_backward(gen) -> tuple[float, float]:
     emit({"backward_paths_checked": len(need), "max_abs_err_fp32": worst_abs,
           "max_err_over_max_abs_fp32": worst})
     torch.cuda.empty_cache()
+    return worst_abs, worst
+
+
+def check_backward_case(gen, name: str, case: tuple, reached: set | None) -> tuple[float, float]:
+    """The backward at one ``(B2, h, w, C, G, S, offset scale, flow
+    magnitude)`` case in fp32 and bf16 against
+    ``deformable_sample_backward_plain``: on the planned path at the width
+    the wrapper picks, twice (``grad_residual`` and ``grad_flow``, summed
+    without atomics, must be equal bit for bit over the two; ``grad_feat``,
+    summed with atomics, is held to the tolerance only); with ``reached``
+    (a set that collects the instances run), also on the global path forced
+    and at every narrower width on both index widths. Returns the largest
+    fp32 error, absolute and relative to its gradient's max abs."""
+    from videoframeinterpolation_tpu_torch.kernels import (
+        deformable_sample, deformable_sample_backward_plain)
+    from videoframeinterpolation_tpu_torch.kernels.window_sample import (
+        BackwardPlan, _backward_plan, _launch_backward, _vector_bytes)
+    from videoframeinterpolation_tpu_torch.tools.perf.sampler_probe import level_inputs
+
+    B2, h, w, C, G, S, scale, flow_mag = case
+    worst, worst_abs = 0.0, 0.0
+    feat, flow, res = level_inputs(gen, B2, h, w, C, G, S, scale, flow_mag)
+    if name == "integer":
+        flow, res = torch.round(flow), torch.round(res)
+    if name == "one_pixel":
+        gy, gx = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float32),
+                                torch.arange(w, device="cuda", dtype=torch.float32),
+                                indexing="ij")
+        flow = torch.stack([3.25 - gx, 2.5 - gy], -1).expand(B2, h, w, 2).contiguous()
+    grad_out = torch.randn((B2, S, h * w, C), generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [x.to(dtype).contiguous() for x in (feat, flow, res, grad_out)]
+        ref = deformable_sample_backward_plain(*args, G)
+        plan = _backward_plan(B2, h, w, C, G, S)
+        width0 = _vector_bytes(C, G, args[0].element_size(), args[0].data_ptr(),
+                               args[3].data_ptr())
+        before = deformable_sample.backward_launches
+        planned = _launch_backward(*args, G)
+        again = _launch_backward(*args, G)
+        checked = {(plan.path, width0, plan.index_bits): planned}
+        for path in (dict.fromkeys((plan.path, "global")) if reached is not None else ()):
+            forced = plan if path == plan.path else BackwardPlan("global", 0, 0, plan.index_bits)
+            width = width0
+            while width >= args[0].element_size():
+                for bits in (32, 64):
+                    if (path, width, bits) not in checked:
+                        checked[path, width, bits] = _launch_backward(
+                            *args, G, width, bits, forced)
+                width //= 2
+        torch.cuda.synchronize()
+        if deformable_sample.backward_launches != before + len(checked) + 1:
+            raise AssertionError(f"backward launches not counted one per call ({name})")
+        repro = torch.equal(planned[1], again[1]) and torch.equal(planned[2], again[2])
+        if not repro:
+            raise AssertionError(f"backward, case {name} {dtype}: grad_flow or "
+                                 "grad_residual differ between two launches")
+        errs = {}
+        for (path, width, bits), got in checked.items():
+            if reached is not None:
+                reached.add((path, str(dtype), width, bits))
+            for g, r, which in zip(got, ref, ("feat", "flow", "residual")):
+                if dtype == torch.float32:
+                    err = (g - r).abs().max().item()
+                    worst_abs = max(worst_abs, err)
+                    scale_ = r.abs().max().item()
+                    ok = err <= BWD_FP32_TOL * scale_
+                    errs[which] = max(errs.get(which, 0.0), err / scale_ if scale_ else err)
+                else:
+                    err, beyond, ok = bf16_backward_check(g, r)
+                    errs[which] = max(errs.get(which, 0.0), err)
+                    key = f"{which}_beyond_1_ulp"
+                    errs[key] = errs.get(key, 0) + beyond
+                if not ok:
+                    raise AssertionError(f"backward vs plain, case {name} {dtype} {path} "
+                                         f"V={width} {bits}-bit, grad_{which}: {err}")
+        if dtype == torch.float32:
+            worst = max(worst, *errs.values())
+        emit({"case": f"backward_{name}", "dtype": str(dtype), "shape": list(res.shape),
+              "plan": plan._asdict(), "vector_bytes": width0,
+              "instances": sorted(checked), "coordinate_gradients_reproducible": repro,
+              ("max_err_over_max_abs" if dtype == torch.float32 else "max_err_in_ulps"):
+              errs})
+        del args, ref, checked, planned, again
+    del feat, flow, res, grad_out
     return worst_abs, worst
 
 
@@ -1331,6 +1420,22 @@ def _leaves(tree, prefix=""):
         else:
             out[f"{prefix}{k}"] = np.asarray(v)
     return out
+
+
+def counting_teacher_launches(make_loss, counter: list):
+    """``make_loss`` (a ``make_distill_loss_fn``) that adds the sampler
+    launches of each of the teacher's forwards to ``counter[0]``, read
+    around each call by module hooks."""
+    from videoframeinterpolation_tpu_torch.kernels import deformable_sample
+
+    def counting_loss_fn(model, teacher, cfg, distill_w):
+        mark = []
+        teacher.register_forward_pre_hook(lambda *_: mark.append(deformable_sample.launches))
+        teacher.register_forward_hook(lambda *_: counter.__setitem__(
+            0, counter[0] + deformable_sample.launches - mark.pop()))
+        return make_loss(model, teacher, cfg, distill_w)
+
+    return counting_loss_fn
 
 
 def check_train(card: str, path_launches: dict) -> dict:
@@ -1434,18 +1539,10 @@ def check_train(card: str, path_launches: dict) -> dict:
                 "--stop_at", "15000", "--out_dir", str(out_dir), "--device", "cuda"]
         tag = head_to_head.result_tag(head_to_head.parse_args(args))
         shutil.copyfile(SHIPPED_STUDENT, out_dir / f"{tag}.ckpt")
-        # The teacher's launches, read around each of its forwards.
         teacher_launches = [0]
         make_loss = head_to_head.make_distill_loss_fn
-
-        def counting_loss_fn(model, teacher, cfg, distill_w):
-            mark = []
-            teacher.register_forward_pre_hook(lambda *_: mark.append(deformable_sample.launches))
-            teacher.register_forward_hook(lambda *_: teacher_launches.__setitem__(
-                0, teacher_launches[0] + deformable_sample.launches - mark.pop()))
-            return make_loss(model, teacher, cfg, distill_w)
-
-        head_to_head.make_distill_loss_fn = counting_loss_fn
+        head_to_head.make_distill_loss_fn = counting_teacher_launches(make_loss,
+                                                                      teacher_launches)
         deformable_sample.launches = deformable_sample.bf16_launches = 0
         deformable_sample.backward_launches = 0
         deformable_sample.backward_path_launches.update(
@@ -1500,6 +1597,319 @@ def check_train(card: str, path_launches: dict) -> dict:
         shutil.rmtree(out_dir, ignore_errors=True)
     return {"backward_launches": launches["backward"], "steps": steps,
             "backward_path_launches": launches["backward_by_path"]}
+
+
+def _write_train_sequence(args):
+    """One training sequence of phase 14's tree (run in a worker process)."""
+    from videoframeinterpolation_tpu_torch.tools import fixtures
+
+    root, index, hw, seed = args
+    fixtures.write_vimeo90k_train_sequence(root, index, hw, seed)
+
+
+def child(kind: str, out: str, argv: list[str]) -> int:
+    """``python3 chip_smoke.py --child train|evaluate OUT -- ARGS``: run the
+    train or the evaluation entry point's ``main(ARGS)`` in this process,
+    with the sampler's level shapes recorded and its counts set to 0 just
+    before, and write to OUT what it gave: the launches (the teacher's
+    forwards counted around each of its calls), the steps, peak memory and
+    the profile summary of a training run; the scores of an evaluation."""
+    sys.path.insert(0, str(ROOT))
+    from videoframeinterpolation_tpu_torch.kernels import window_sample
+    from videoframeinterpolation_tpu_torch.kernels.window_sample import deformable_sample
+
+    forward, backward = record_level_shapes(window_sample)
+    result = {}
+    if kind == "evaluate":
+        from videoframeinterpolation_tpu_torch import evaluate
+
+        result["scores"] = evaluate.main(argv)
+    elif kind == "train":
+        from videoframeinterpolation_tpu_torch.train import __main__ as cli
+        from videoframeinterpolation_tpu_torch.train import trainer as trainer_mod
+
+        teacher_launches = [0]
+        trainer_mod.make_distill_loss_fn = counting_teacher_launches(
+            trainer_mod.make_distill_loss_fn, teacher_launches)
+        # The launches of validation and image summaries, read around them.
+        outside = {"validate": 0, "_log_images": 0}
+        for name in outside:
+            def counted(self, *args, _name=name, _fn=getattr(trainer_mod.Trainer, name)):
+                before = deformable_sample.launches
+                out = _fn(self, *args)
+                outside[_name] += deformable_sample.launches - before
+                return out
+
+            setattr(trainer_mod.Trainer, name, counted)
+        deformable_sample.launches = deformable_sample.bf16_launches = 0
+        deformable_sample.backward_launches = 0
+        deformable_sample.backward_path_launches.update(
+            dict.fromkeys(deformable_sample.backward_path_launches, 0))
+        torch.cuda.reset_peak_memory_stats()
+        trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        result.update(
+            steps=trainer.state.step, launches=deformable_sample.launches,
+            bf16_launches=deformable_sample.bf16_launches,
+            teacher_launches=teacher_launches[0], validation_launches=outside["validate"],
+            image_launches=outside["_log_images"], backward_launches=deformable_sample.backward_launches,
+            backward_path_launches=dict(deformable_sample.backward_path_launches),
+            peak_memory_bytes=torch.cuda.max_memory_allocated(), profile=trainer.profile)
+    else:
+        raise SystemExit(f"unknown child {kind!r}")
+    result.update(forward_shapes=sorted(forward), backward_shapes=sorted(backward))
+    Path(out).write_text(json.dumps(result))
+    return 0
+
+
+def start_child(kind: str, out: Path, argv: list[str], cwd: Path,
+                log: Path) -> subprocess.Popen:
+    """Start :func:`child` in a new process, its output to ``log``."""
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--child", kind,
+                                 str(out), "--", *argv], cwd=cwd, stdout=f,
+                                stderr=subprocess.STDOUT)
+
+
+def finish_child(proc: subprocess.Popen, out: Path, log: Path, timeout: float) -> dict:
+    """Wait for a child; raise with the end of its log unless it exited 0."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{' '.join(proc.args[3:5])} ran over {timeout} s:\n"
+                             f"{log.read_text()[-3000:]}") from None
+    if rc != 0:
+        raise AssertionError(f"{' '.join(proc.args[3:5])} exited {rc}:\n"
+                             f"{log.read_text()[-3000:]}")
+    return json.loads(out.read_text())
+
+
+def _sets(pairs: list[str]) -> list[str]:
+    return [arg for kv in pairs for arg in ("--set", kv)]
+
+
+def _train_records(run: Path) -> list[dict]:
+    """The training steps' records of a run's ``metrics.jsonl`` (complete
+    lines only: the run may be writing)."""
+    lines = (run / "metrics.jsonl").read_text().split("\n")[:-1]
+    return [r for r in map(json.loads, lines) if "train/total_loss" in r]
+
+
+def _param_leaves(path: Path) -> np.ndarray:
+    """Every parameter of a checkpoint, concatenated as float64."""
+    from videoframeinterpolation_tpu_torch.train import read_flax_msgpack
+
+    leaves = _leaves(read_flax_msgpack(path))
+    return np.concatenate([leaves[k].astype(np.float64).ravel() for k in sorted(leaves)])
+
+
+def check_trainer(tmp: Path, card: str, path_launches: dict, launched: set,
+                  launched_backward: set) -> None:
+    """Phase 14 (see the module docstring)."""
+    from videoframeinterpolation_tpu_torch import evaluate
+    from videoframeinterpolation_tpu_torch.config import Config
+    from videoframeinterpolation_tpu_torch.data import Vimeo90KwFlow, decode_png, native
+    from videoframeinterpolation_tpu_torch.kernels import deformable_sample
+    from videoframeinterpolation_tpu_torch.models import create_model
+    from videoframeinterpolation_tpu_torch.tools import fixtures
+    from videoframeinterpolation_tpu_torch.train import (CheckpointManager, create_train_state,
+                                                         state_from_flax, state_to_flax)
+
+    start = time.perf_counter()
+    native.load_library()
+    emit({"native_data_path_built_seconds": round(time.perf_counter() - start, 3)})
+    n_train, n_test, hw, seed = (TRAINER_TREE[k] for k in ("train", "test", "hw", "seed"))
+    root = tmp / "datasets" / "vimeo_triplet"
+    start = time.perf_counter()
+    workers = min(8, os.cpu_count() or 1)
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        test = pool.submit(_write_fixture, ("vimeo90k", tmp, [hw] * n_test, seed))
+        list(pool.map(_write_train_sequence, [(root, i, hw, seed) for i in range(n_train)]))
+        test.result()
+    fixtures.write_vimeo90k_trainlist(root, n_train)
+    emit({"trainer_tree": {"train": n_train, "test": n_test, "hw": list(hw), "workers": workers,
+                           "seconds": round(time.perf_counter() - start, 3)}})
+    # The data path on this host, one thread: ms per training item (three
+    # PNG decodes, two .flo reads, the augmentation) on the native and the
+    # numpy path, and per PNG decode.
+    recipe = Config.from_yaml(ROOT / TRAINER_RECIPE, teacher_ckpt=str(ROOT / TRAINER_TEACHER))
+    item_ms = {}
+    for name, use_native in (("native", True), ("numpy", False)):
+        ds = Vimeo90KwFlow(str(root), crop_hw=(recipe.crop_h, recipe.crop_w), seed=seed,
+                           use_native=use_native)
+        ds[0]
+        start = time.perf_counter()
+        for i in range(DATA_TIMED_ITEMS):
+            ds[i % len(ds)]
+        item_ms[name] = 1e3 * (time.perf_counter() - start) / DATA_TIMED_ITEMS
+    png = (root / "sequences" / fixtures.VIMEO_TRAIN_NAME.format(1) / "im1.png").read_bytes()
+    start = time.perf_counter()
+    for _ in range(DATA_TIMED_ITEMS):
+        decode_png(png)
+    item_ms["png_decode_256x448"] = 1e3 * (time.perf_counter() - start) / DATA_TIMED_ITEMS
+    emit({"data_path_ms_per_item_one_thread": item_ms, "items": DATA_TIMED_ITEMS})
+
+    cli = ["--config", str(ROOT / TRAINER_RECIPE), "--set", f"teacher_ckpt={ROOT / TRAINER_TEACHER}",
+           "--set", f"root={root}", "--device", "cuda"]
+
+    def run(kind, name, argv, timeout=600):
+        out, log = tmp / f"{name}.json", tmp / f"{name}.log"
+        return finish_child(start_child(kind, out, argv, tmp, log), out, log, timeout)
+
+    torch.cuda.empty_cache()
+    # Run A: the recipe, profiled.
+    start = time.perf_counter()
+    a = run("train", "run_a", ["--exp_name", "A", *cli, *_sets(RUN_A),
+                               "--profile_steps", ",".join(map(str, PROFILE_STEPS))])
+    a_seconds = time.perf_counter() - start
+    exp = tmp / "exps" / "A"
+    cfg = Config.from_yaml(exp / "config.yaml")
+    steps, spe = a["steps"], n_train // cfg.batch_size
+    n_val = cfg.num_epochs * -(-n_test // 4)        # test batches of 4 per epoch
+    n_img = steps // cfg.img_summary_freq
+    expect = {"steps": cfg.num_epochs * spe, "student_forward": 3 * steps,
+              "teacher_forward": 3 * steps, "backward": 3 * steps, "backward_smem": 3 * steps,
+              "validation_forward": 3 * n_val, "image_forward": 3 * n_img, "fp32_forward": 0}
+    got = {"steps": steps, "teacher_forward": a["teacher_launches"],
+           "student_forward": (a["bf16_launches"] - a["teacher_launches"]
+                               - a["validation_launches"] - a["image_launches"]),
+           "backward": a["backward_launches"],
+           "backward_smem": a["backward_path_launches"]["smem"],
+           "validation_forward": a["validation_launches"], "image_forward": a["image_launches"],
+           "fp32_forward": a["launches"] - a["bf16_launches"]}
+    path_launches["trainer"] = a["launches"]
+    path_launches["trainer_backward"] = a["backward_launches"]
+    emit({"trainer_run_a_launches": got, "expected": expect})
+    if got != expect:
+        raise AssertionError(f"run A: launches {got}, expected {expect}")
+
+    records = _train_records(exp)
+    val = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()
+           if "val/vimeo90k/val/vimeo90k_psnr" in line]
+    psnr = [r["val/vimeo90k/val/vimeo90k_psnr"] for r in val]
+    profiled = set(range(PROFILE_STEPS[0] + 1, PROFILE_STEPS[1] + 1))
+    timed = [r for r in records if r["step"] > 3 and r["step"] not in profiled]
+    step_ms = sorted(1e3 * r["train/train_time"] for r in timed)
+    data = sum(r["train/data_time"] for r in timed)
+    share = data / (data + sum(r["train/train_time"] for r in timed))
+    profile = a["profile"]
+    emit({"trainer_run_a": {
+        "steps": steps, "seconds": round(a_seconds, 3),
+        "ms_per_step_median": step_ms[len(step_ms) // 2], "ms_per_step_min": step_ms[0],
+        "ms_per_step_max": step_ms[-1], "timed_steps": len(step_ms),
+        "train_time_ms_by_step": [round(1e3 * r["train/train_time"], 3) for r in records],
+        "data_time_ms_by_step": [round(1e3 * r["train/data_time"], 3) for r in records],
+        "data_time_share": share, "peak_memory_bytes": a["peak_memory_bytes"],
+        "val_psnr_per_epoch": psnr,
+        "profile": {k: v for k, v in profile.items() if k != "top"},
+        "top_device_ops": profile["top"][:10], "card": card}})
+    if [r["step"] for r in records] != list(range(1, steps + 1)) or len(psnr) != 2:
+        raise AssertionError(f"run A logged steps {[r['step'] for r in records]}, "
+                             f"validations {psnr}")
+    if not profile["busy_share"] or not 0 < profile["busy_share"] <= 1:
+        raise AssertionError(f"run A's profile shows no device time: {profile}")
+
+    # Its checkpoints: the four names, JAX's metadata (each save's step, its
+    # epoch, the best PSNR so far), each restoring bit for bit.
+    best = max(psnr)
+    latest = steps - steps % cfg.save_latest_freq
+    at_best = 1 + psnr.index(best)
+    want_meta = {
+        "latest": {"step": latest, "epoch": (latest - 1) // spe,
+                   "best_psnr": max(psnr[:(latest - 1) // spe], default=0.0)},
+        "epoch_001": {"step": spe, "epoch": 1, "best_psnr": 0.0},
+        "epoch_002": {"step": 2 * spe, "epoch": 2, "best_psnr": psnr[0]},
+        "best_vimeo90k": {"step": at_best * spe, "epoch": at_best, "best_psnr": best}}
+    ckpts = CheckpointManager(exp, create=False)
+    files = sorted(p.name for p in ckpts.dir.iterdir())
+    meta, restored = {}, {}
+    for name in filter(ckpts.exists, want_meta):
+        tree, meta[name] = ckpts.restore(name)
+        state = create_train_state(create_model(cfg, torch.float32), cfg)
+        state_from_flax(tree, state)
+        again, disk = _leaves(state_to_flax(state)), _leaves(tree)
+        restored[name] = (again.keys() == disk.keys() and state.step == meta[name]["step"]
+                          and all(np.array_equal(again[k], v) and again[k].dtype == v.dtype
+                                  for k, v in disk.items()))
+    images = sorted(p.name for p in (exp / "images").iterdir())
+    emit({"trainer_checkpoints": files, "meta": meta, "restored_bit_for_bit": restored,
+          "images": images, "config_yaml": (exp / "config.yaml").is_file()})
+    if meta != want_meta or not all(restored.values()) or len(restored) != 4:
+        raise AssertionError(f"run A checkpoints: {meta} (expected {want_meta}), "
+                             f"restored {restored}")
+    if images != [f"{k}_{s:07d}.png" for k in ("flow", "pred")
+                  for s in range(cfg.img_summary_freq, steps + 1, cfg.img_summary_freq)]:
+        raise AssertionError(f"run A images {images}")
+
+    # evaluate --exp_name: the card in fp32, and the CPU (beside B and C).
+    cpu_out, cpu_log = tmp / "eval_cpu.json", tmp / "eval_cpu.log"
+    cpu = start_child("evaluate", cpu_out, ["--exp_name", "A", "--ssim", "--device", "cpu"],
+                      tmp, cpu_log)
+    deformable_sample.launches = deformable_sample.bf16_launches = 0
+    with working_directory(tmp):
+        on_card = evaluate.main(["--exp_name", "A", "--ssim", "--device", "cuda"])
+    torch.cuda.synchronize()
+    path_launches["evaluate_exp_name"] = deformable_sample.launches
+    eval_launches = (deformable_sample.launches, deformable_sample.bf16_launches)
+
+    # Runs B (preempted at step SIGTERM_AT_STEP, then resumed) and C (twice).
+    bc = ["--set", f"teacher_ckpt={ROOT / TRAINER_TEACHER}", "--set", f"root={root}",
+          "--config", str(ROOT / TRAINER_RECIPE), "--device", "cuda", *_sets(RUN_BC)]
+    out, log = tmp / "run_b1.json", tmp / "run_b1.log"
+    proc = start_child("train", out, ["--exp_name", "B", *bc], tmp, log)
+    metrics, signalled = tmp / "exps" / "B" / "metrics.jsonl", None
+    deadline = time.perf_counter() + 600
+    while proc.poll() is None and time.perf_counter() < deadline:
+        if metrics.is_file() and any(r["step"] >= SIGTERM_AT_STEP
+                                     for r in _train_records(metrics.parent)):
+            proc.send_signal(signal.SIGTERM)
+            signalled = max(r["step"] for r in _train_records(metrics.parent))
+            break
+        time.sleep(0.02)
+    b1 = finish_child(proc, out, log, 600)
+    b_meta = json.loads((tmp / "exps" / "B" / "checkpoints" / "latest.meta.json").read_text())
+    b2 = run("train", "run_b2", ["--exp_name", "B", "--resume", "latest", *bc])
+    c = run("train", "run_c", ["--exp_name", "C", *bc])
+    c2 = run("train", "run_c2", ["--exp_name", "C2", *bc])
+    final = {name: _param_leaves(tmp / "exps" / name / "checkpoints" / "epoch_001.ckpt")
+             for name in ("B", "C", "C2")}
+    norm = np.linalg.norm(final["C"])
+    b_gap = float(np.linalg.norm(final["B"] - final["C"]) / norm)
+    c_gap = float(np.linalg.norm(final["C2"] - final["C"]) / norm)
+    b_steps = [r["step"] for r in _train_records(tmp / "exps" / "B")]
+    emit({"trainer_preemption": {
+        "sigterm_after_step": signalled, "latest_meta": b_meta, "first_run_steps": b1["steps"],
+        "resumed_steps": b2["steps"], "logged_steps": b_steps,
+        "final_rel_l2_B_vs_C": b_gap, "final_rel_l2_C2_vs_C": c_gap,
+        "max_abs_B_vs_C": float(np.abs(final["B"] - final["C"]).max()),
+        "max_abs_C2_vs_C": float(np.abs(final["C2"] - final["C"]).max()),
+        "steps_c": [c["steps"], c2["steps"]]}})
+    if not (signalled is not None and b1["steps"] == b_meta["step"] < spe
+            and b_meta["epoch"] == 0 and b2["steps"] == c["steps"] == c2["steps"] == spe
+            and b_steps == list(range(1, spe + 1))):
+        raise AssertionError(f"preemption run: SIGTERM after step {signalled}, 'latest' "
+                             f"{b_meta}, steps {b1['steps']} / {b2['steps']}, logged {b_steps}")
+    if b_gap > 2 * c_gap:
+        raise AssertionError(f"the resumed run is {b_gap} from the uninterrupted one, over "
+                             f"twice the gap between two uninterrupted runs ({c_gap})")
+
+    cpu_scores = finish_child(cpu, cpu_out, cpu_log, 900)["scores"]
+    diffs = {k: on_card[k] - v for k, v in cpu_scores.items()}
+    emit({"evaluate_exp_name": {"card": on_card, "cpu": cpu_scores, "card_minus_cpu": diffs,
+                                "launches": eval_launches[0], "bf16_launches": eval_launches[1]}})
+    if (on_card.keys() != cpu_scores.keys()
+            or abs(diffs["val/vimeo90k_psnr"]) > EVAL_PSNR_TOL
+            or abs(diffs["val/vimeo90k_ssim"]) > EVAL_SSIM_TOL):
+        raise AssertionError(f"evaluate --exp_name: card {on_card} against CPU {cpu_scores}")
+    if eval_launches != (3 * -(-n_test // 4), 0):
+        raise AssertionError(f"evaluate --exp_name: {eval_launches} launches (all, bf16); "
+                             f"expected {3 * -(-n_test // 4)} fp32")
+    for r in (a, b1, b2, c, c2):
+        launched.update(map(tuple, r["forward_shapes"]))
+        launched_backward.update(map(tuple, r["backward_shapes"]))
 
 
 def check_row_gather(gen, probe_shapes) -> None:
@@ -1602,4 +2012,6 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(child(sys.argv[2], sys.argv[3], sys.argv[5:]))
     sys.exit(main())

@@ -40,7 +40,7 @@ from videoframeinterpolation_tpu.eval import benchmarks as jax_bench
 from videoframeinterpolation_tpu.eval import metrics as jax_metrics
 from videoframeinterpolation_tpu_torch import evaluate, interpolate
 from videoframeinterpolation_tpu_torch.data import DataLoader, Vimeo90K, encode_png
-from videoframeinterpolation_tpu_torch.data.vimeo90k import Vimeo90KwFlow
+from videoframeinterpolation_tpu_torch.config import Config
 from videoframeinterpolation_tpu_torch.eval import benchmarks
 from videoframeinterpolation_tpu_torch.tools import eval_best, eval_instants, fixtures
 
@@ -129,7 +129,7 @@ def test_validate_synthetic_matches_jax(tiny):
     _close(ours, ref)
 
 
-def test_evaluate_cli_routes_synthetic_and_refuses_what_is_not_ported(monkeypatch):
+def test_evaluate_cli_routes_synthetic_and_refuses_what_is_not_ported(monkeypatch, tmp_path):
     calls = []
     monkeypatch.setattr(evaluate, "load_model", lambda cfg, path, device: torch.nn.Linear(1, 1))
     monkeypatch.setattr(evaluate, "validate_synthetic",
@@ -137,8 +137,22 @@ def test_evaluate_cli_routes_synthetic_and_refuses_what_is_not_ported(monkeypatc
     evaluate.main(["--benchmark", "synthetic", "--batch_size", "3", "--device", "cpu"])
     assert calls == [{"seed": 42, "report_ssim": False, "batch_size": 3,
                       "device": torch.device("cpu")}]
-    with pytest.raises(SystemExit, match="queue 1 item 5"):
-        evaluate.main(["--exp_name", "x", "--device", "cpu"])
+    # --exp_name is ported: it reads the run's config.yaml and scores its
+    # best checkpoint (or --ckpt, by name) under the config's log_dir.
+    loaded = []
+    monkeypatch.setattr(evaluate, "load_model",
+                        lambda cfg, path, device: loaded.append((cfg, path)) or
+                        torch.nn.Linear(1, 1))
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "exps" / "x").mkdir(parents=True)
+    Config(exp_name="x", seed=5, save_best_benchmark="ucf101").save_yaml(
+        tmp_path / "exps" / "x" / "config.yaml")
+    evaluate.main(["--exp_name", "x", "--benchmark", "synthetic", "--device", "cpu"])
+    evaluate.main(["--exp_name", "x", "--ckpt", "latest", "--benchmark", "synthetic",
+                   "--device", "cpu"])
+    run = tmp_path / "exps" / "x" / "checkpoints"
+    assert [(c.seed, c.compute_dtype, p) for c, p in loaded] == [
+        (5, "float32", run / "best_ucf101.ckpt"), (5, "float32", run / "latest.ckpt")]
     with pytest.raises(SystemExit, match="queue 1 item 7"):
         evaluate.main(["--window_sampling", "--device", "cpu"])
 
@@ -248,9 +262,16 @@ def test_vimeo90k_test_split_gives_the_jax_bytes(trees):
         assert list(a) == list(b)
         for k in a:
             assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), (i, k)
-    for cls in (Vimeo90K, Vimeo90KwFlow):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            cls(root)
+    # The training split is ported (tests/test_torch_vimeo_train.py holds it
+    # in full): over a training list of the same sequences, with the same
+    # seed, the two frameworks' augmented items are equal.
+    (trees / "datasets" / "vimeo_triplet" / "tri_trainlist.txt").write_text(
+        (trees / "datasets" / "vimeo_triplet" / "tri_testlist.txt").read_text())
+    ours, ref = Vimeo90K(root, (16, 16), seed=9), JaxVimeo90K(root, (16, 16), seed=9)
+    assert ours.is_train and len(ours) == len(ref) == 3
+    for i in range(3):
+        a, b = ours[i], ref[i]
+        assert all(np.array_equal(a[k], b[k]) for k in b) and list(a) == list(b)
 
 
 def _jax_tool_records(ckpt, jinfer, ts) -> list[dict]:

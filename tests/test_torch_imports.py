@@ -64,7 +64,10 @@ def test_importing_the_port_and_chip_smoke_pulls_in_nothing_forbidden():
                 "tools.perf.lane_gather_probe", "tools.perf.sampler_probe", "tools.perf.timing",
                 "config", "models.base", "data.synthetic", "eval.metrics", "tools.eval_best",
                 "ops.losses", "train.schedule", "train.state", "train.step",
-                "tools.head_to_head"):
+                "tools.head_to_head", "utils.yaml_subset", "utils.logger", "utils.flow_viz",
+                "data.augment", "data.native", "data.vimeo90k", "parallel.ddp",
+                "train.checkpoint", "train.preemption", "train.trainer", "train.__main__",
+                "evaluate"):
         assert f"videoframeinterpolation_tpu_torch.{mod}" in result["added"]
     assert "chip_smoke" in result["added"]
     assert not [m for m in result["added"] if _forbidden(m)]

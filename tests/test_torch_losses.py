@@ -208,5 +208,25 @@ def test_adamw_step_matches_optax(count, warmup):
 
 
 def test_grad_clip_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        create_optimizer(dataclasses.replace(Config(), grad_clip=1.0))
+    """``grad_clip`` is ported (the name is the test's from before): the
+    optimizer chains the global-norm clip before AdamW, and one step from a
+    fresh state matches ``optax.chain(clip_by_global_norm, adamw)`` as the
+    JAX package builds it, with the clip firing."""
+    rng = np.random.default_rng(11)
+    shapes = {"a": (3, 4), "b": (7,), "c": (2, 3, 5)}
+    params, grads, _, _ = _adam_case(rng, shapes, 0)
+    grads = {k: v * np.float32(100.0) for k, v in grads.items()}   # norm above the clip
+    jcfg = dataclasses.replace(JaxConfig(), warmup_steps=0, grad_clip=1.0)
+    tx = jax_optimizer(jcfg)
+    updates, new_state = tx.update(grads, tx.init(params), params)
+    ours = create_optimizer(dataclasses.replace(Config(), warmup_steps=0, grad_clip=1.0))
+    assert ours.clip_norm == 1.0
+    tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    ostate = ours.init(tparams)
+    ours.update(tparams, {k: torch.from_numpy(v) for k, v in grads.items()}, ostate)
+    for k in shapes:
+        np.testing.assert_allclose(tparams[k].numpy(), np.asarray(params[k] + updates[k]),
+                                   rtol=ADAM_TOL, atol=0)
+        # The first moment holds the clipped gradient.
+        np.testing.assert_allclose(ostate.exp_avg[k].numpy(), np.asarray(new_state[1][0].mu[k]),
+                                   rtol=ADAM_TOL, atol=0)

@@ -10,7 +10,10 @@ seed gives the same bytes on every machine, so a loop's read of a tree on
 one machine can be held against another's.
 
   * Vimeo90K: ``datasets/vimeo_triplet/sequences/<seq>/im{1,2,3}.png`` and
-    ``tri_testlist.txt``;
+    ``tri_testlist.txt``; a training tree also has ``tri_trainlist.txt``
+    and, per training sequence, ``flow/<seq>/flow_t0.flo`` and
+    ``flow_t1.flo``: the scene's true flows from t = 0.5 to frames 0 and 1,
+    in pixels (training scenes of the generator's training split);
   * UCF101: ``datasets/UCF-101/test/<n>/frame_{00,01_gt,02}.png``;
   * SNU-FILM: ``datasets/SNU-FILM/test/<seq>/{0,1,2}.png`` and
     ``test-{easy,medium,hard,extreme}.txt``, each line ``i0 gt i1`` with
@@ -27,6 +30,7 @@ from pathlib import Path
 import numpy as np
 
 from ..data.png import encode_png
+from ..data.readers import write_flo
 from ..data.synthetic import SyntheticMotion
 from ..eval.benchmarks import SNU_LEVELS
 
@@ -36,8 +40,11 @@ def triplet(hw: tuple[int, int], seed: int, index: int = 0):
     of ``SyntheticMotion(seed=seed)`` at ``hw``, uint8 ``(H, W, 3)``."""
     item = SyntheticMotion(crop_hw=hw, is_train=False, seed=seed, num_items=index + 1,
                            fixed_t=0.5)[index]
-    return tuple(np.clip(np.round(item[k] * 255.0), 0, 255).astype(np.uint8)
-                 for k in ("x0", "xt", "x1"))
+    return tuple(_quantise(item[k]) for k in ("x0", "xt", "x1"))
+
+
+def _quantise(x: np.ndarray) -> np.ndarray:
+    return np.clip(np.round(x * 255.0), 0, 255).astype(np.uint8)
 
 
 def _write(path: Path, img: np.ndarray) -> None:
@@ -55,6 +62,44 @@ def write_vimeo90k(base: str | Path, hws, seed: int) -> Path:
             _write(root / "sequences" / name / f, img)
         names.append(name)
     (root / "tri_testlist.txt").write_text("".join(f"{n}\n" for n in names))
+    return root
+
+
+VIMEO_TRAIN_NAME = "{:05d}/0002"   # training sequences; the test split's are .../0001
+
+
+def write_vimeo90k_train_sequence(root: str | Path, index: int, hw: tuple[int, int],
+                                  seed: int) -> None:
+    """Training sequence ``index`` of a Vimeo90K tree under ``root``:
+    scene ``index`` of the generator's training split at t = 0.5, its
+    frames as PNG and its true flows t->0 and t->1 (pixels) as ``.flo``."""
+    item = SyntheticMotion(crop_hw=hw, is_train=True, seed=seed, num_items=index + 1,
+                           flow_in_pixels=True, fixed_t=0.5)[index]
+    root = Path(root)
+    name = VIMEO_TRAIN_NAME.format(index + 1)
+    for k, f in (("x0", "im1.png"), ("xt", "im2.png"), ("x1", "im3.png")):
+        _write(root / "sequences" / name / f, _quantise(item[k]))
+    flow = root / "flow" / name
+    flow.mkdir(parents=True, exist_ok=True)
+    write_flo(str(flow / "flow_t0.flo"), item["f0x"])
+    write_flo(str(flow / "flow_t1.flo"), item["f1x"])
+
+
+def write_vimeo90k_trainlist(root: str | Path, n_train: int) -> None:
+    """``tri_trainlist.txt`` naming training sequences ``0 .. n_train - 1``."""
+    names = [VIMEO_TRAIN_NAME.format(i + 1) for i in range(n_train)]
+    (Path(root) / "tri_trainlist.txt").write_text("".join(f"{n}\n" for n in names))
+
+
+def write_vimeo90k_train(base: str | Path, n_train: int, train_hw: tuple[int, int],
+                         test_hws, seed: int) -> Path:
+    """A Vimeo90K tree with a training split of ``n_train`` sequences at
+    ``train_hw`` (:func:`write_vimeo90k_train_sequence`) and the test split
+    of :func:`write_vimeo90k`; returns the root."""
+    root = write_vimeo90k(base, test_hws, seed)
+    write_vimeo90k_trainlist(root, n_train)
+    for i in range(n_train):
+        write_vimeo90k_train_sequence(root, i, train_hw, seed)
     return root
 
 

@@ -1,4 +1,4 @@
-"""Read and write flax msgpack checkpoints without flax or msgpack.
+"""Read and write flax msgpack checkpoints without flax or msgpack; the trainer's checkpoint manager.
 
 Counterpart of the msgpack branch of
 ``videoframeinterpolation_tpu/train/checkpoint.py:restore_teacher_params``
@@ -16,6 +16,7 @@ each, as the msgpack package does. Standard library and numpy only.
 
 from __future__ import annotations
 
+import json
 import struct
 from pathlib import Path
 
@@ -234,3 +235,71 @@ def write_flax_state(path: str | Path, state: dict) -> None:
     tmp = path.with_suffix(path.suffix + ".tmp")
     tmp.write_bytes(flax_msgpack_bytes(state))
     tmp.replace(path)
+
+
+class CheckpointManager:
+    """Cadenced checkpoints of a training run (counterpart of the JAX
+    package's Orbax ``CheckpointManager``): ``latest`` every
+    ``save_latest_freq`` steps, ``epoch_XXX`` every ``save_every_freq_epoch``
+    epochs, ``best_<benchmark>`` when validation improves. Each is
+    ``<log_dir>/checkpoints/<name>.ckpt``, the whole TrainState as a flax
+    msgpack file (written to a temporary file and renamed into place), and
+    ``<name>.meta.json`` holding ``step``, ``epoch`` and ``best_psnr``.
+    The JAX package's ``restore_teacher_params`` reads such a file through
+    its msgpack branch."""
+
+    SUFFIX = ".ckpt"
+
+    def __init__(self, log_dir: str | Path, create: bool = True):
+        self.dir = Path(log_dir).absolute() / "checkpoints"
+        if create:
+            self.dir.mkdir(parents=True, exist_ok=True)
+
+    def path(self, name: str) -> Path:
+        return self.dir / f"{name}{self.SUFFIX}"
+
+    def _meta_path(self, name: str) -> Path:
+        return self.dir / f"{name}.meta.json"
+
+    def save(self, name: str, tree: dict, *, epoch: int, best_psnr: float) -> None:
+        """Write ``tree`` (``state_to_flax`` of the TrainState) and its meta."""
+        write_flax_state(self.path(name), tree)
+        meta = {"step": int(tree["step"]), "epoch": int(epoch), "best_psnr": float(best_psnr)}
+        tmp = self._meta_path(name).with_suffix(".json.tmp")
+        tmp.write_text(json.dumps(meta))
+        tmp.replace(self._meta_path(name))
+
+    def restore(self, name: str) -> tuple[dict, dict]:
+        """``(tree, meta)`` of checkpoint ``name``."""
+        if not self.exists(name):
+            raise FileNotFoundError(f"no checkpoint {name!r} under {self.dir}")
+        return read_flax_state(self.path(name)), json.loads(self._meta_path(name).read_text())
+
+    def exists(self, name: str) -> bool:
+        return self.path(name).is_file() and self._meta_path(name).is_file()
+
+
+def resolve_teacher_ckpt(path: str | Path) -> Path:
+    """The file a ``teacher_ckpt`` names: a flax msgpack file as given (a
+    committed ``.best.ckpt``, a port checkpoint), or a port experiment's
+    checkpoint named without its suffix
+    (``exps/teacher/checkpoints/best_vimeo90k``, as the two-stage recipe of
+    ``configs/DAT_fast_distill.yaml`` writes it). An Orbax checkpoint
+    directory of the JAX trainer raises: the port reads no Orbax."""
+    p = Path(path)
+    if p.is_dir():
+        raise ValueError(f"teacher_ckpt {path} is a directory, an Orbax checkpoint of the JAX "
+                         "trainer; the port reads flax msgpack files (a .ckpt written by the "
+                         "port's trainer or by a quality-study tool)")
+    if p.is_file():
+        return p
+    with_suffix = p.with_name(p.name + CheckpointManager.SUFFIX)
+    if with_suffix.is_file():
+        return with_suffix
+    raise FileNotFoundError(f"teacher_ckpt not found: {path}")
+
+
+def restore_teacher_params(path: str | Path) -> dict:
+    """The ``params`` tree of a teacher checkpoint (see
+    :func:`resolve_teacher_ckpt`); its optimizer state is dropped."""
+    return read_flax_msgpack(resolve_teacher_ckpt(path))

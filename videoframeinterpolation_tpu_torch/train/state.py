@@ -12,6 +12,12 @@ repeats optax's arithmetic step for step, in float32:
     count *before* the update (``optax.scale_by_schedule``), so the first
     update of a fresh state uses ``lr(0)``, which is 0 under warmup.
 
+With ``grad_clip`` set, the JAX package chains
+``optax.clip_by_global_norm(grad_clip)`` before AdamW: where the global
+L2 norm of the gradient is not below ``grad_clip``, every gradient becomes
+``(g / norm) * grad_clip``. :class:`AdamW` does the same with
+``clip_norm``, on the card without reading the norm back to the host.
+
 ``torch.optim.AdamW`` differs from this (its bias correction and decay
 order, and a ``LambdaLR`` one step ahead), hence a class of its own. The
 update is in place (PyTorch's tensors are mutable; the JAX state is
@@ -22,7 +28,8 @@ launches and not one per parameter.
 ``tools/quality/head_to_head.py`` checkpoints: ``step``, ``params`` (the
 model's fp32 master parameters) and ``opt_state`` = (adam ``count``,
 ``mu`` -> ``exp_avg``, ``nu`` -> ``exp_avg_sq``), optax's empty
-decay state, and the schedule's ``count``. :func:`state_to_flax` and
+decay state, and the schedule's ``count``; with ``grad_clip``, the chain's
+``(clip state, adamw state)``, the clip's state empty. :func:`state_to_flax` and
 :func:`state_from_flax` carry it across (``train/checkpoint.py`` writes
 and reads the bytes).
 """
@@ -50,12 +57,16 @@ class AdamWState:
 
 
 class AdamW:
-    """``optax.adamw(schedule, b1, b2, eps, weight_decay)`` on named fp32 tensors."""
+    """``optax.adamw(schedule, b1, b2, eps, weight_decay)`` on named fp32
+    tensors, after ``optax.clip_by_global_norm(clip_norm)`` where
+    ``clip_norm`` is given."""
 
     def __init__(self, schedule: Callable[[int], float], weight_decay: float,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 clip_norm: float | None = None):
         self.schedule, self.weight_decay = schedule, weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.clip_norm = clip_norm
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamWState:
         zeros = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
@@ -68,6 +79,8 @@ class AdamW:
         names = list(params)
         p = [params[k] for k in names]
         g = [grads[k] for k in names]
+        if self.clip_norm is not None:
+            g = clip_by_global_norm(g, self.clip_norm)
         mu = [state.exp_avg[k] for k in names]
         nu = [state.exp_avg_sq[k] for k in names]
         f32 = np.float32
@@ -98,14 +111,21 @@ class AdamW:
         state.schedule_count += 1
 
 
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
+    """``optax.clip_by_global_norm``: the gradients as they are where their
+    global L2 norm is below ``max_norm``, else each ``(g / norm) * max_norm``.
+    The norm stays on the device (no host read)."""
+    norm = torch.stack([torch.sum(x * x) for x in grads]).sum().sqrt()
+    keep = norm < max_norm
+    return [torch.where(keep, x, (x / norm) * max_norm) for x in grads]
+
+
 def create_optimizer(cfg: Config) -> AdamW:
-    """AdamW over the warmup-cosine schedule of ``cfg`` (JAX ``create_optimizer``)."""
-    if cfg.grad_clip is not None:
-        raise NotImplementedError("grad_clip is not ported yet (optax.clip_by_global_norm "
-                                  "would also change the checkpoint's opt_state)")
+    """AdamW over the warmup-cosine schedule of ``cfg``, with ``grad_clip``
+    chained before it (JAX ``create_optimizer``)."""
     schedule = make_schedule(cfg.start_lr, cfg.end_lr, cfg.last_lr_decay_iter,
                              cfg.warmup_steps)
-    return AdamW(schedule, cfg.weight_decay)
+    return AdamW(schedule, cfg.weight_decay, clip_norm=cfg.grad_clip)
 
 
 @dataclasses.dataclass
@@ -153,15 +173,16 @@ def state_to_flax(state: TrainState) -> dict:
     """The flax ``TrainState`` tree of ``state`` (``{"step", "params",
     "opt_state"}``), as :func:`..train.checkpoint.write_flax_state` writes it."""
     model, opt = state.model, state.opt_state
+    adamw = {
+        "0": {"count": _count(opt.count), "mu": params_to_flax(opt.exp_avg, model),
+              "nu": params_to_flax(opt.exp_avg_sq, model)},
+        "1": {},
+        "2": {"count": _count(opt.schedule_count)},
+    }
     return {
         "step": _count(state.step),
         "params": params_to_flax(state.params, model),
-        "opt_state": {
-            "0": {"count": _count(opt.count), "mu": params_to_flax(opt.exp_avg, model),
-                  "nu": params_to_flax(opt.exp_avg_sq, model)},
-            "1": {},
-            "2": {"count": _count(opt.schedule_count)},
-        },
+        "opt_state": adamw if state.tx.clip_norm is None else {"0": {}, "1": adamw},
     }
 
 
@@ -170,6 +191,11 @@ def state_from_flax(tree: Mapping, state: TrainState) -> None:
     returns it) into ``state``: the model's parameters, the moments and
     the counts, each leaf through the layout rules of ``interop``."""
     opt = tree["opt_state"]
+    if state.tx.clip_norm is not None:
+        if set(opt) != {"0", "1"} or opt["0"]:
+            raise ValueError("opt_state is not optax.chain(clip_by_global_norm, adamw)'s "
+                             "(the config sets grad_clip)")
+        opt = opt["1"]
     if set(opt) != {"0", "1", "2"} or opt["1"] or set(opt["0"]) != {"count", "mu", "nu"}:
         raise ValueError("opt_state is not optax.adamw's (scale_by_adam, "
                          "add_decayed_weights, scale_by_schedule)")

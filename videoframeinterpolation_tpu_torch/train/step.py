@@ -6,7 +6,9 @@ runs them eagerly, one step per call of :func:`train_step`; a batch is a
 dict of tensors on the model's device (``x0``, ``x1``, ``xt``, ``t`` and,
 for flow distillation, ``f0x``, ``f1x``). Only the flagship's recipes are
 ported: :func:`make_loss_fn` and :func:`make_distill_loss_fn` for
-``DATwConstantnC``. The log keys are JAX's.
+``DATwConstantnC``. The log keys are JAX's. ``model`` may be wrapped in
+``DistributedDataParallel`` (:mod:`..parallel.ddp`): the loss calls the
+wrapper, which averages the gradients over the processes.
 """
 
 from __future__ import annotations
@@ -23,9 +25,14 @@ from .state import TrainState
 LossFn = Callable[[dict], "tuple[torch.Tensor, dict]"]
 
 
+def _unwrapped(model: torch.nn.Module) -> torch.nn.Module:
+    """The module inside a ``DistributedDataParallel`` wrapper, or ``model``."""
+    return getattr(model, "module", model)
+
+
 def make_loss_fn(model: torch.nn.Module, cfg: Config) -> LossFn:
     """``loss_fn(batch) -> (loss, log)`` of the model's own recipe."""
-    if not isinstance(model, DATwConstantnC):
+    if not isinstance(_unwrapped(model), DATwConstantnC):
         raise ValueError(f"no loss ported for model {type(model).__name__}")
 
     def loss_fn(batch):
@@ -40,7 +47,7 @@ def make_distill_loss_fn(model: torch.nn.Module, teacher: torch.nn.Module, cfg: 
     """The model's recipe plus output-space teacher distillation,
     ``distill_w * Charbonnier(pred - pred_teacher)``. The teacher is frozen:
     it runs its serving forward under ``torch.no_grad``."""
-    if not isinstance(model, DATwConstantnC):
+    if not isinstance(_unwrapped(model), DATwConstantnC):
         raise ValueError(f"no distillation recipe for model {type(model).__name__}")
 
     def loss_fn(batch):
