@@ -138,7 +138,32 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      twice the gap between C and a second uninterrupted run (the card sums
      ``grad_feat`` in a varying order). ``evaluate --exp_name`` on the card
      in fp32 within 0.005 dB and 5e-5 SSIM of the same on the CPU;
- 13. shapes (runs last): every level shape at which phases 3-12 and 14
+ 15. families (runs after 14, on its tree): IFRNet and DAT-TPU from
+     ``configs/IFRNet.yaml`` and ``configs/DAT_TPU.yaml`` at full width,
+     and the quality study's dilated + group-offset DAT-TPU, each with a
+     TrainState drawn with numpy from ``FAMILY_SEED``
+     (``seeded_family_state``; no checkpoint of either family is
+     committed). (a) Each written by the port's checkpoint writer and
+     served through ``load_model`` in the YAML's bf16: four 448x256
+     requests through ``interp_pair``, no sampler launch; one request card
+     against CPU as in phase 4; the fp32 frame on the held-out scene
+     ``FAMILY_SCENE`` within 0.005 dB (PSNR against its true middle frame)
+     and 1e-4 (its mean) of the JAX package's CPU fp32 read
+     (``JAX_FAMILIES``); ms per frame in bf16 and fp32; device operations
+     per request and busy share (``tools/profile_serve.py``). (b) One fp32
+     training step of each (its own recipe, TF32 off, batch 2 at 128x128)
+     card against CPU to phase 10 (a)'s limits; the production trainer's
+     CLI with each YAML at its recipe (IFRNet batch 6, crop 224, with the
+     forward flows written for its 48 sequences; DAT-TPU batch 12, crop
+     256) for one epoch of 8 steps, ``RUN_FAMILY``'s cadences and
+     ``FAMILY_PROFILE_STEPS`` traced: ms per step, ``data_time`` share,
+     peak memory, busy share, no sampler launch, ``latest``,
+     ``epoch_001`` and ``best_vimeo90k`` restoring bit for bit;
+     ``evaluate --exp_name`` on the card in fp32 within 0.005 dB and 5e-5
+     SSIM of the same on the CPU. (c) ``tools/head_to_head.py`` on the
+     variant for 20 steps on a 64-scene pool, its records under JAX's tag
+     (``FAMILY_H2H_TAG``), ms per step;
+ 13. shapes (runs last): every level shape at which phases 3-12, 14 and 15
      launched the sampler (recorded at each launch, the children's too) is
      listed; any that phase 2 did not hold is held here as phase 2 holds
      its cases (one needing 64-bit indices fails: it belongs in
@@ -159,6 +184,7 @@ convolutions and matmuls), so an fp32 model computes in full fp32 on the
 card, and phases 4 and 7 compare like with like; the evaluation switches
 it off too, for the SSIM's ``conv3d``.
 
+After the phases the script prints its whole time (``script_seconds``).
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result.
@@ -321,6 +347,37 @@ RUN_BC = ["num_epochs=1", "num_workers=1", "metric_summary_freq=1", "save_latest
           "save_every_freq_epoch=1", "val_datasets=[]"]
 SIGTERM_AT_STEP = 5
 DATA_TIMED_ITEMS = 48   # training items timed on the host, per data path
+# Phase 15 (families): IFRNet and DAT-TPU from their YAMLs at full width, and
+# the quality study's dilated + group-offset DAT-TPU (head_to_head's
+# OFFSET_SETS and OFFSET_GROUPS). No checkpoint of either family is
+# committed: each TrainState is drawn with numpy from FAMILY_SEED
+# (seeded_family_state) at step FAMILY_STEP, the same on every machine.
+FAMILIES = {"IFRNet": "configs/IFRNet.yaml", "DAT_TPU": "configs/DAT_TPU.yaml",
+            "DAT_TPU_dilated_goff": "configs/DAT_TPU.yaml"}
+FAMILY_SEED = 15
+FAMILY_STEP = 1000
+# The held-out SyntheticMotion scene each family serves: (size, seed), index 0.
+FAMILY_SCENE = ((256, 448), 16)
+# The JAX package's CPU fp32 read of each family's frame on FAMILY_SCENE at
+# t = 0.5 with the same parameters, (PSNR dB against the true middle frame,
+# the frame's mean), printed by
+#   JAX_PLATFORMS=cpu python tests/jax_cpu_reads.py --part families
+JAX_FAMILIES = {"IFRNet": (34.58601270023546, 0.48564809877938214),
+                "DAT_TPU": (19.298734448338216, 0.5239750224028241),
+                "DAT_TPU_dilated_goff": (19.246799060622894, 0.5084678643933807)}
+FAMILY_MEAN_TOL = 1e-4
+# The production trainer on phase 14's tree at each YAML's recipe (IFRNet
+# batch 6, crop 224, with the forward flows written for its sequences;
+# DAT-TPU batch 12, crop 256), for one epoch of 8 steps: the training
+# sequences each reads, its cadences cut, the traced steps.
+FAMILY_TRAIN_SEQUENCES = {"IFRNet": 48, "DAT_TPU": 96}
+RUN_FAMILY = ["num_epochs=1", "save_latest_freq=4", "save_every_freq_epoch=1",
+              "valid_freq_epoch=1", "img_summary_freq=8", "metric_summary_freq=1"]
+FAMILY_PROFILE_STEPS = (5, 7)
+# The quality study's trainer on the variant: 20 steps on a 64-scene pool.
+FAMILY_H2H = ["--model", "DATwConstantnCTPU", "--dilated", "--goff", "--steps", "20",
+              "--pool", "64", "--chunk", "10", "--eval_every", "20", "--warmup", "5"]
+FAMILY_H2H_TAG = "DATwConstantnCTPU_dilated_goff_0k"
 # An index of K x N >= 2^31 elements (64-bit indices): 2^24 + 1 rows of a
 # 1024-row bf16 table, checked at its first and last rows.
 ROW_WIDE = (1024, 128, 2 ** 24 + 1, torch.bfloat16)
@@ -720,9 +777,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="vfi_trainer_") as tmp:
         with Phase("trainer"):
             check_trainer(Path(tmp), card, path_launches, launched_shapes, launched_backward)
+        # Phase 15 trains on phase 14's tree.
+        with Phase("families"):
+            check_families(Path(tmp), card, path_launches, launched_shapes, launched_backward)
 
-    # Phase 13 runs last, so that it holds the shapes of every path, phase
-    # 14's included.
+    # Phase 13 runs last, so that it holds the shapes of every path, phases
+    # 14's and 15's included.
     with Phase("shapes"):
         late = sorted(launched_shapes - checked_shapes)
         emit({"launched_level_shapes": sorted(launched_shapes), "checked_in_phase_2":
@@ -819,6 +879,7 @@ def main() -> int:
             "per_shape": rows,
             "card": card,
         })
+    emit({"script_seconds": round(time.perf_counter() - _T0, 3)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -1910,6 +1971,361 @@ def check_trainer(tmp: Path, card: str, path_launches: dict, launched: set,
     for r in (a, b1, b2, c, c2):
         launched.update(map(tuple, r["forward_shapes"]))
         launched_backward.update(map(tuple, r["backward_shapes"]))
+
+
+def family_config(name: str, **overrides):
+    """Family ``name``'s config: its YAML as it stands, plus the quality
+    study's dilated taps and offset groups for the variant."""
+    from videoframeinterpolation_tpu_torch.config import Config
+    from videoframeinterpolation_tpu_torch.tools.head_to_head import OFFSET_GROUPS, OFFSET_SETS
+
+    if name.endswith("_dilated_goff"):
+        overrides = {"offset_sets": OFFSET_SETS, "n_offset_groups": OFFSET_GROUPS, **overrides}
+    return Config.from_yaml(ROOT / FAMILIES[name], **overrides)
+
+
+def seeded_family_state(name: str):
+    """``(config, TrainState)`` of family ``name`` at full width on the CPU,
+    fp32, with every parameter and moment drawn with numpy from
+    ``FAMILY_SEED`` in the order of the parameters' sorted names: kernels
+    ``U(+-1/sqrt(fan_in))`` (the torch-default rule of ``nn/blocks.py``; the
+    zero-initialised offset predictors too, so that offsets act), biases
+    ``N(0, 0.02)``, PReLU slopes ``0.25 + N(0, 0.02)``; ``mu`` ``N(0,
+    1e-4)`` and ``nu`` ``U(1e-8, 1e-6)``, the moments of a run in progress,
+    so that a gradient that is zero in exact arithmetic (the key
+    projections' biases: the softmax ignores a shift shared by every tap)
+    does not decide the sign of an update; the step and the counts
+    ``FAMILY_STEP``."""
+    from videoframeinterpolation_tpu_torch.models import create_model
+    from videoframeinterpolation_tpu_torch.nn.blocks import _fan_in
+    from videoframeinterpolation_tpu_torch.train import create_train_state
+
+    cfg = family_config(name)
+    model = create_model(cfg, torch.float32)
+    modules = dict(model.named_modules())
+    state = create_train_state(model, cfg)
+    rng = np.random.default_rng(FAMILY_SEED)
+    with torch.no_grad():
+        for key, p in sorted(model.named_parameters()):
+            owner, _, leaf = key.rpartition(".")
+            if leaf == "alpha":
+                value = 0.25 + rng.normal(0, 0.02, p.shape)
+            elif leaf == "bias":
+                value = rng.normal(0, 0.02, p.shape)
+            else:
+                bound = 1.0 / np.sqrt(_fan_in(modules[owner]))
+                value = rng.uniform(-bound, bound, p.shape)
+            p.copy_(torch.from_numpy(value.astype(np.float32)))
+            state.opt_state.exp_avg[key].copy_(
+                torch.from_numpy(rng.normal(0, 1e-4, p.shape).astype(np.float32)))
+            state.opt_state.exp_avg_sq[key].copy_(
+                torch.from_numpy(rng.uniform(1e-8, 1e-6, p.shape).astype(np.float32)))
+    state.step = state.opt_state.count = state.opt_state.schedule_count = FAMILY_STEP
+    return cfg, state
+
+
+def frame_psnr(pred: np.ndarray, gt: np.ndarray) -> float:
+    """PSNR (dB) of a ``[0, 1]`` float frame against a uint8 frame, in float64."""
+    mse = np.mean((pred.astype(np.float64) - gt.astype(np.float64) / 255.0) ** 2)
+    return float(10 * np.log10(1.0 / mse))
+
+
+def family_yaml(tmp: Path, name: str, cfg) -> Path:
+    """A YAML file of family ``name``'s config: its own, or for the variant
+    the config written under ``tmp``, as a user would write one."""
+    if not name.endswith("_dilated_goff"):
+        return ROOT / FAMILIES[name]
+    path = tmp / f"{name}.yaml"
+    cfg.save_yaml(path)
+    return path
+
+
+def check_families(tmp: Path, card: str, path_launches: dict, launched: set,
+                   launched_backward: set) -> None:
+    """Phase 15 (see the module docstring)."""
+    ckpts = tmp / "families"
+    ckpts.mkdir()
+    for name in FAMILIES:
+        serve_family(ckpts, name, card, path_launches)
+    for name in FAMILIES:
+        family_step_card_vs_cpu(ckpts / f"{name}.ckpt", name)
+    train_families(tmp, card, path_launches, launched, launched_backward)
+    family_head_to_head(tmp, card, path_launches)
+
+
+def serve_family(ckpts: Path, name: str, card: str, path_launches: dict) -> None:
+    """Phase 15 (a) for one family: its seeded TrainState written by the
+    port's writer and served through ``load_model`` in the YAML's bf16,
+    four 448x256 requests through ``interp_pair`` with no sampler launch;
+    one request card against CPU (``card_vs_cpu``); the fp32 frame's PSNR
+    and mean against ``JAX_FAMILIES``; ms per frame in bf16 and fp32, and
+    ``tools/profile_serve.py``'s device operations and busy share."""
+    from videoframeinterpolation_tpu_torch.interpolate import interp_pair, load_model
+    from videoframeinterpolation_tpu_torch.kernels import deformable_sample
+    from videoframeinterpolation_tpu_torch.tools import fixtures, profile_serve
+    from videoframeinterpolation_tpu_torch.tools.perf import timing
+    from videoframeinterpolation_tpu_torch.train import state_to_flax, write_flax_state
+
+    cfg, state = seeded_family_state(name)
+    ckpt = ckpts / f"{name}.ckpt"
+    write_flax_state(ckpt, state_to_flax(state))
+    n_params = sum(p.numel() for p in state.model.parameters())
+    del state
+    model = load_model(cfg, ckpt, device="cuda")
+    if model.dtype != torch.bfloat16 or cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"{name} served in {model.dtype}, its YAML says {cfg.compute_dtype}")
+    f0, mid, f1 = fixtures.triplet(*FAMILY_SCENE)
+    deformable_sample.launches = deformable_sample.bf16_launches = 0
+    deformable_sample.backward_launches = 0
+    served = []
+    for t in (0.5, 0.25, 0.5, 0.75):
+        start = time.perf_counter()
+        pred = interp_pair(model, f0, f1, t)
+        torch.cuda.synchronize()
+        served.append({"t": t, "host_ms": round((time.perf_counter() - start) * 1e3, 3),
+                       "psnr_vs_mid": round(psnr(pred, mid), 3)})
+        if pred.shape != mid.shape or pred.dtype != np.uint8:
+            raise AssertionError(f"{name}: got {pred.dtype} {pred.shape}")
+    path_launches[f"families_{name}"] = deformable_sample.launches
+    emit({"family": name, "yaml": FAMILIES[name], "params": n_params, "dtype": str(model.dtype),
+          "requests": served, "sampler_launches": deformable_sample.launches,
+          "sampler_backward_launches": deformable_sample.backward_launches})
+    if deformable_sample.launches or deformable_sample.backward_launches:
+        raise AssertionError(f"{name} launched the deformable sampler, which it does not use")
+
+    x0, x1 = (torch.from_numpy(f.astype(np.float32) / 255.0)[None] for f in (f0, f1))
+    t5 = torch.full((1, 1, 1, 1), 0.5)
+    model32 = card_vs_cpu(cfg, ckpt, model, x0, x1, t5)
+    torch.set_num_threads(1)
+    xs = (x0.cuda(), x1.cuda(), t5.cuda())
+    with torch.inference_mode():
+        frame = model32(*xs)[0].cpu().numpy()
+        ms = {f"ms_per_frame_448x256_{k}": timing.loop_ms(lambda: m(*xs), 20, warmup=5) / 20
+              for k, m in (("bf16", model), ("fp32", model32))}
+    read = {"psnr": frame_psnr(frame, mid), "mean": float(frame.mean(dtype=np.float64))}
+    ref_psnr, ref_mean = JAX_FAMILIES[name]
+    emit({"family": name, "fp32_frame": read, "jax_cpu_fp32": {"psnr": ref_psnr, "mean": ref_mean},
+          "psnr_minus_jax_cpu": read["psnr"] - ref_psnr, "mean_minus_jax_cpu": read["mean"] - ref_mean,
+          **ms, "card": card})
+    if not (abs(read["psnr"] - ref_psnr) <= EVAL_PSNR_TOL
+            and abs(read["mean"] - ref_mean) <= FAMILY_MEAN_TOL):
+        raise AssertionError(f"{name}: fp32 frame {read} against JAX's CPU read "
+                             f"{(ref_psnr, ref_mean)}")
+    del model, model32
+    torch.cuda.empty_cache()
+    summary = profile_serve.main(["--config", str(family_yaml(ckpts, name, cfg)), "--ckpt",
+                                  str(ckpt), "--requests", "5"])
+    emit({"family": name, "profile_serve": {k: v for k, v in summary.items() if k != "top"},
+          "top_device_ops": summary["top"][:8]})
+    if not summary["device_busy_ms_per_request"] > 0:
+        raise AssertionError(f"{name}: the profile shows no device time: {summary}")
+
+
+def family_step_card_vs_cpu(ckpt: Path, name: str) -> None:
+    """Phase 15 (b), first part: one fp32 training step (the model's own
+    recipe, ``make_loss_fn``) from the family's seeded TrainState, TF32 off,
+    batch 2 at 128x128 of the held-out pool's training split, on the card
+    against the same step on the CPU, to phase 10 (a)'s limits."""
+    from videoframeinterpolation_tpu_torch.models import create_model
+    from videoframeinterpolation_tpu_torch.tools.eval_best import build_pool
+    from videoframeinterpolation_tpu_torch.train import (
+        create_train_state, make_loss_fn, read_flax_state, state_from_flax, state_to_flax)
+
+    cfg32 = family_config(name, compute_dtype="float32")
+    tree = read_flax_state(ckpt)
+    batch_np = build_pool(2, (128, 128), 42, is_train=True)
+    step = {}
+    for device in ("cuda", "cpu"):
+        torch.set_num_threads((os.cpu_count() or 1) if device == "cpu" else 1)
+        state = create_train_state(create_model(cfg32, torch.float32).to(device), cfg32)
+        state_from_flax(tree, state)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch_np.items()}
+        start = time.perf_counter()
+        total, _ = make_loss_fn(state.model, cfg32)(batch)
+        total.backward()
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu().clone()
+                 for k, p in state.params.items()}
+        state.apply_gradients()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError("TF32 is on: the fp32 step would not compute fp32")
+        step[device] = {"loss": total.item(), "grads": grads,
+                        "tree": _leaves(state_to_flax(state)),
+                        "seconds": time.perf_counter() - start}
+        del state, batch, total
+    torch.set_num_threads(1)
+    on_card, cpu = step["cuda"], step["cpu"]
+    loss_err = abs(on_card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    keys = sorted(cpu["grads"])
+    grad_err = (torch.cat([(on_card["grads"][k] - cpu["grads"][k]).flatten() for k in keys]).norm()
+                / torch.cat([cpu["grads"][k].flatten() for k in keys]).norm()).item()
+    state_err = {part: float(max(np.abs(on_card["tree"][k] - v).max()
+                                 for k, v in cpu["tree"].items() if k.startswith(part)))
+                 for part in ("params/", "opt_state/0/mu/", "opt_state/0/nu/")}
+    emit({"family": name, "train_step_fp32_card_vs_cpu": {
+        "loss_card": on_card["loss"], "loss_cpu": cpu["loss"], "loss_rel_err": loss_err,
+        "grad_rel_l2_err": grad_err, "state_max_abs_err": state_err,
+        "card_seconds": on_card["seconds"], "cpu_seconds": cpu["seconds"]}})
+    if not (loss_err <= STEP_LOSS_REL_TOL and grad_err <= STEP_GRAD_TOL
+            and max(state_err.values()) <= STEP_STATE_TOL):
+        raise AssertionError(f"{name}: fp32 step, card vs CPU: loss {loss_err}, gradients "
+                             f"{grad_err}, state {state_err}")
+
+
+def _write_forward_flows(args):
+    """One training sequence's forward flows (run in a worker process)."""
+    from videoframeinterpolation_tpu_torch.tools import fixtures
+
+    fixtures.write_vimeo90k_forward_flows(*args)
+
+
+def train_families(tmp: Path, card: str, path_launches: dict, launched: set,
+                   launched_backward: set) -> None:
+    """Phase 15 (b), second part: the production trainer's CLI with each
+    YAML at its recipe on phase 14's tree (``FAMILY_TRAIN_SEQUENCES``; for
+    IFRNet a root beside it listing its first 48 sequences, with their
+    forward flows written under the YAML's ``flow_dir``), for one epoch of 8
+    steps with ``RUN_FAMILY``'s cadences, ``FAMILY_PROFILE_STEPS`` traced;
+    ms per step, the ``data_time`` share, peak memory, the busy share; no
+    sampler launch; ``latest``, ``epoch_001`` and ``best_vimeo90k`` restore
+    bit for bit; then ``evaluate --exp_name`` on the card in fp32 within
+    0.005 dB and 5e-5 SSIM of the same on the CPU."""
+    from videoframeinterpolation_tpu_torch import evaluate
+    from videoframeinterpolation_tpu_torch.config import Config
+    from videoframeinterpolation_tpu_torch.models import create_model
+    from videoframeinterpolation_tpu_torch.tools import fixtures
+    from videoframeinterpolation_tpu_torch.train import (CheckpointManager, create_train_state,
+                                                         state_from_flax, state_to_flax)
+
+    tree = tmp / "datasets" / "vimeo_triplet"
+    hw, seed = TRAINER_TREE["hw"], TRAINER_TREE["seed"]
+    ifrnet = tmp / "datasets" / "vimeo_ifrnet"
+    ifrnet.mkdir()
+    flow_dir = Config.from_yaml(ROOT / FAMILIES["IFRNet"]).flow_dir
+    n_ifrnet = FAMILY_TRAIN_SEQUENCES["IFRNet"]
+    start = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            min(8, os.cpu_count() or 1), mp_context=multiprocessing.get_context("spawn")) as pool:
+        list(pool.map(_write_forward_flows,
+                      [(ifrnet, i, hw, seed, flow_dir) for i in range(n_ifrnet)]))
+    (ifrnet / "sequences").symlink_to(tree / "sequences")
+    (ifrnet / "tri_testlist.txt").write_text((tree / "tri_testlist.txt").read_text())
+    fixtures.write_vimeo90k_trainlist(ifrnet, n_ifrnet)
+    emit({"family_forward_flows": {"sequences": n_ifrnet, "flow_dir": flow_dir,
+                                   "seconds": round(time.perf_counter() - start, 3)}})
+
+    def run(kind, name, argv, timeout=600):
+        out, log = tmp / f"{name}.json", tmp / f"{name}.log"
+        return finish_child(start_child(kind, out, argv, tmp, log), out, log, timeout)
+
+    n_test = TRAINER_TREE["test"]
+    roots = {"IFRNet": ifrnet, "DAT_TPU": tree}
+    for name, root in roots.items():
+        exp_name = f"family_{name}"
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        r = run("train", exp_name, ["--exp_name", exp_name, "--config", str(ROOT / FAMILIES[name]),
+                                    "--set", f"root={root}", "--device", "cuda",
+                                    *_sets(RUN_FAMILY), "--profile_steps",
+                                    ",".join(map(str, FAMILY_PROFILE_STEPS))])
+        seconds = time.perf_counter() - start
+        exp = tmp / "exps" / exp_name
+        cfg = Config.from_yaml(exp / "config.yaml")
+        spe = FAMILY_TRAIN_SEQUENCES[name] // cfg.batch_size
+        records = _train_records(exp)
+        profiled = set(range(FAMILY_PROFILE_STEPS[0] + 1, FAMILY_PROFILE_STEPS[1] + 1))
+        timed = [x for x in records if x["step"] > 3 and x["step"] not in profiled]
+        step_ms = sorted(1e3 * x["train/train_time"] for x in timed)
+        data = sum(x["train/data_time"] for x in timed)
+        val = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()
+               if "val/vimeo90k/val/vimeo90k_psnr" in line]
+        path_launches[f"families_trainer_{name}"] = r["launches"]
+        emit({"family_trainer": {
+            "family": name, "model": cfg.model_name, "batch_size": cfg.batch_size,
+            "crop": [cfg.crop_h, cfg.crop_w], "dtype": cfg.compute_dtype, "steps": r["steps"],
+            "seconds": round(seconds, 3), "ms_per_step_median": step_ms[len(step_ms) // 2],
+            "ms_per_step_min": step_ms[0], "ms_per_step_max": step_ms[-1],
+            "timed_steps": len(step_ms),
+            "train_time_ms_by_step": [round(1e3 * x["train/train_time"], 3) for x in records],
+            "data_time_share": data / (data + sum(x["train/train_time"] for x in timed)),
+            "peak_memory_bytes": r["peak_memory_bytes"],
+            "val_psnr": [x["val/vimeo90k/val/vimeo90k_psnr"] for x in val],
+            "sampler_launches": r["launches"], "sampler_backward_launches": r["backward_launches"],
+            "profile": {k: v for k, v in r["profile"].items() if k != "top"},
+            "top_device_ops": r["profile"]["top"][:10], "card": card}})
+        if (r["steps"] != spe or spe != 8 or [x["step"] for x in records] != list(range(1, 9))
+                or len(val) != 1 or r["launches"] or r["backward_launches"]):
+            raise AssertionError(f"{name}: {r['steps']} steps, logged "
+                                 f"{[x['step'] for x in records]}, validations {len(val)}, "
+                                 f"sampler launches {r['launches']} / {r['backward_launches']}")
+        if not r["profile"]["busy_share"] or not 0 < r["profile"]["busy_share"] <= 1:
+            raise AssertionError(f"{name}: the profile shows no device time: {r['profile']}")
+        ckpts = CheckpointManager(exp, create=False)
+        restored = {}
+        for ck in ("latest", "epoch_001", f"best_{cfg.save_best_benchmark}"):
+            saved, meta = ckpts.restore(ck)
+            state = create_train_state(create_model(cfg, torch.float32), cfg)
+            state_from_flax(saved, state)
+            again, disk = _leaves(state_to_flax(state)), _leaves(saved)
+            restored[ck] = (again.keys() == disk.keys() and state.step == meta["step"] == 8
+                            and all(np.array_equal(again[k], v) and again[k].dtype == v.dtype
+                                    for k, v in disk.items()))
+        emit({"family": name, "checkpoints_restored_bit_for_bit": restored})
+        if not all(restored.values()):
+            raise AssertionError(f"{name}: checkpoints restored {restored}")
+        launched.update(map(tuple, r["forward_shapes"]))
+        launched_backward.update(map(tuple, r["backward_shapes"]))
+
+    # evaluate --exp_name: the CPU runs in children beside the card's.
+    cpu = {}
+    for name in roots:
+        out, log = tmp / f"family_eval_cpu_{name}.json", tmp / f"family_eval_cpu_{name}.log"
+        cpu[name] = (start_child("evaluate", out, ["--exp_name", f"family_{name}", "--ssim",
+                                                   "--device", "cpu"], tmp, log), out, log)
+    for name in roots:
+        start = time.perf_counter()
+        with working_directory(tmp):
+            on_card = evaluate.main(["--exp_name", f"family_{name}", "--ssim", "--device",
+                                     "cuda"])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - start
+        cpu_scores = finish_child(*cpu[name], 900)["scores"]
+        diffs = {k: on_card[k] - v for k, v in cpu_scores.items()}
+        emit({"family": name, "evaluate_exp_name": {
+            "card": on_card, "cpu": cpu_scores, "card_minus_cpu": diffs, "items": n_test,
+            "card_seconds": round(card_s, 3)}})
+        if (on_card.keys() != cpu_scores.keys()
+                or abs(diffs["val/vimeo90k_psnr"]) > EVAL_PSNR_TOL
+                or abs(diffs["val/vimeo90k_ssim"]) > EVAL_SSIM_TOL):
+            raise AssertionError(f"{name}: evaluate --exp_name, card {on_card} against CPU "
+                                 f"{cpu_scores}")
+
+
+def family_head_to_head(tmp: Path, card: str, path_launches: dict) -> None:
+    """Phase 15 (c): ``tools/head_to_head.py`` on the dilated + group-offset
+    DAT-TPU for 20 steps on a 64-scene pool: its records under JAX's tag,
+    ms per step, no sampler launch."""
+    from videoframeinterpolation_tpu_torch.kernels import deformable_sample
+    from videoframeinterpolation_tpu_torch.tools import head_to_head
+
+    out_dir = tmp / "families_h2h"
+    deformable_sample.launches = deformable_sample.backward_launches = 0
+    out = head_to_head.main(FAMILY_H2H + ["--out_dir", str(out_dir), "--device", "cuda"])
+    path_launches["families_head_to_head"] = deformable_sample.launches
+    records = out["records"]
+    emit({"family_head_to_head": {
+        "tag": out["tag"], "events": [r["event"] for r in records], "final": records[-1],
+        "n_params": records[0].get("n_params"), "ms_per_step": out["ms_per_step"],
+        "peak_memory_bytes": out["peak_memory_bytes"], "files": sorted(
+            p.name for p in out_dir.iterdir()), "sampler_launches": deformable_sample.launches,
+        "card": card}})
+    if (out["tag"] != FAMILY_H2H_TAG or [r["event"] for r in records] != ["start", "eval", "final"]
+            or not (out_dir / f"{FAMILY_H2H_TAG}.jsonl").is_file()
+            or records[0]["n_params"] != 4_567_055 or out["state"].step != 20
+            or deformable_sample.launches or deformable_sample.backward_launches):
+        raise AssertionError(f"head_to_head on the variant: tag {out['tag']}, records {records}, "
+                             f"sampler launches {deformable_sample.launches}")
 
 
 def check_row_gather(gen, probe_shapes) -> None:

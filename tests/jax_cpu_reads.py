@@ -1,6 +1,6 @@
 """The JAX package's CPU fp32 reads that ``chip_smoke.py`` holds the card to (a script, not a test).
 
-    JAX_PLATFORMS=cpu python tests/jax_cpu_reads.py [--part synthetic|trees|plan|all]
+    JAX_PLATFORMS=cpu python tests/jax_cpu_reads.py [--part synthetic|trees|plan|families|all]
 
 Prints one JSON line per read, for the constants of ``chip_smoke.py``:
 
@@ -14,7 +14,14 @@ Prints one JSON line per read, for the constants of ``chip_smoke.py``:
   * ``plan``: the flow-aware tiling plan ``(overlap, trim)`` and the probe's
     magnitude for ``chip_smoke.HD_PAIR`` at ``--tile 512``, as the JAX
     ``evaluate.py`` (fp32) and ``interpolate.py`` (the YAML's bf16) make it
-    (``JAX_HD_PLAN``).
+    (``JAX_HD_PLAN``);
+  * ``families``: the fp32 frame of IFRNet, DAT-TPU and the dilated +
+    group-offset DAT-TPU (``chip_smoke.FAMILIES``, at full width from
+    their YAMLs) at t = 0.5 on the held-out scene
+    ``chip_smoke.FAMILY_SCENE``, with the parameters
+    ``chip_smoke.seeded_family_state`` draws, written by the port's
+    checkpoint writer and read by flax: its PSNR against the scene's true
+    middle frame and its mean (``JAX_FAMILIES``).
 
 The 256x448 reads take about a minute per batch of 4 on an 8-core host,
 most of it in ``ssim_3d``; the non-shared ``DAT`` needs about 18 GiB.
@@ -34,6 +41,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import jax  # noqa: E402
+import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from flax import serialization as fser  # noqa: E402
 
@@ -111,12 +119,36 @@ def plan() -> None:
               "flow_mag_px": mag, "overlap_trim": list(got) if got else None})
 
 
+def families() -> None:
+    from videoframeinterpolation_tpu_torch.train import state_to_flax, write_flax_state
+
+    x0, mid, x1 = fixtures.triplet(*chip_smoke.FAMILY_SCENE)
+    x0, x1 = (jnp.asarray(f.astype("float32")[None] / 255.0) for f in (x0, x1))
+    t = jnp.full((1, 1, 1, 1), 0.5, jnp.float32)
+    for name, yaml in chip_smoke.FAMILIES.items():
+        cfg, state = chip_smoke.seeded_family_state(name)
+        overrides = ({"offset_sets": cfg.offset_sets, "n_offset_groups": cfg.n_offset_groups}
+                     if name.endswith("_dilated_goff") else {})
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "family.ckpt"
+            write_flax_state(path, state_to_flax(state))
+            params = fser.msgpack_restore(path.read_bytes())["params"]
+        model = create_model(Config.from_yaml(ROOT / yaml, compute_dtype="float32", **overrides))
+        start = time.perf_counter()
+        frame = np.asarray(jax.jit(model.apply)(params, x0, x1, t))[0]
+        emit({"family": name, "psnr": chip_smoke.frame_psnr(frame, mid),
+              "mean": float(frame.mean(dtype=np.float64)),
+              "seconds": time.perf_counter() - start})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--part", choices=["synthetic", "trees", "plan", "all"], default="all")
+    ap.add_argument("--part", choices=["synthetic", "trees", "plan", "families", "all"],
+                    default="all")
     part = ap.parse_args().part
     jax.config.update("jax_platforms", "cpu")
-    for name, fn in (("plan", plan), ("trees", trees), ("synthetic", synthetic)):
+    for name, fn in (("plan", plan), ("trees", trees), ("families", families),
+                     ("synthetic", synthetic)):
         if part in (name, "all"):
             fn()
 

@@ -83,7 +83,7 @@ def test_config_yaml_crosses_both_ways(tmp_path, name):
 
 @pytest.mark.parametrize("text", [
     "a: &x 1\n", "a: !!str 1\n", "a: |\n  text\n", "a: {b: 1}\n", "a:\n  - b: 1\n",
-    "a: 0x1f\n", "a: 017\n", "a: 2001-12-14\n", "a: 1:30\n", "a:\n- - 1\n", "a: b\n  c\n",
+    "a: 0x1f\n", "a: 017\n", "a: 2001-12-14\n", "a: 1:30\n", "a:\n- -\n", "a: b\n  c\n",
     "a: 'open\n", "a: [1, 2\n", "---\na: 1\n",
 ])
 def test_outside_the_subset_raises_naming_the_line(text):
@@ -96,9 +96,26 @@ def test_outside_the_subset_raises_naming_the_line(text):
     "a: yes\nb: Off\nc: ~\nd:\ne: NULL\nf: 'it''s'\ng: \"q\\\"\"\nh: a b c\ni: -x\n",
     "a: [[1, 2], [], [x, 'y, z']]  # c\nb: []\nc: {}\n# only a comment\n",
     "k:\n  - 1\n  - [2, 3]\nm:\n  n:\n  - true\n  o: 0.0002\np: last\n",
+    "a:\n- - -2\n  - 0\n- - 4\nb:\n  c:\n  - - 1\n    - - x\n      - []\n  - 2\n",
+    "a:\n  -   - 1\n      - 2\n  - [3]\n",
 ])
 def test_scalars_and_structures_read_as_pyyaml_reads_them(text):
     assert _typed(yaml_subset.loads(text)) == _typed(yaml.safe_load(text))
+
+
+def test_a_dilated_dat_tpu_config_crosses_both_ways(tmp_path):
+    """``offset_sets``, a list of lists, written by both frameworks'
+    ``save_yaml`` byte for byte and read back by both."""
+    sets = ((-2, -1, 0, 1, 2), (-4, -2, -1, 0, 1, 2, 4), (-6, -4, -2, -1, 0, 1, 2, 4, 6))
+    kw = dict(exp_name="x", model_name="DATwConstantnCTPU", offset_sets=sets,
+              n_offset_groups=(4, 8, 8))
+    jax_cfg, port_cfg = JaxConfig(**kw), Config(**kw)
+    jax_cfg.save_yaml(tmp_path / "jax.yaml")
+    port_cfg.save_yaml(tmp_path / "port.yaml")
+    assert (tmp_path / "port.yaml").read_text() == (tmp_path / "jax.yaml").read_text()
+    assert Config.from_yaml(tmp_path / "jax.yaml").offset_sets == [list(o) for o in sets]
+    assert (_typed(JaxConfig.from_yaml(tmp_path / "port.yaml").to_dict())
+            == _typed(Config.from_yaml(tmp_path / "jax.yaml").to_dict()))
 
 
 def test_set_values_and_dump_round_trip():

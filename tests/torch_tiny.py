@@ -1,4 +1,4 @@
-"""A small DAT on both sides, shared by the port's CPU tests (a helper module, not a test).
+"""A small DAT on both sides, and helpers shared by the port's CPU model tests (a helper module, not a test).
 
 The JAX tools score a checkpoint file, and the JAX package has no
 ``--enc_res_blocks`` flag in them, so the small model keeps the JAX
@@ -16,6 +16,7 @@ side reads the same parameters from the checkpoint the port writes
 from __future__ import annotations
 
 import dataclasses
+import os
 from pathlib import Path
 
 import numpy as np
@@ -65,3 +66,48 @@ def jax_tiny(ckpt: Path, cfg=TINY):
                                     dat_samples=tuple(cfg.dat_samples)))
     params = fser.msgpack_restore(Path(ckpt).read_bytes())["params"]
     return model, params, jax.jit(model.apply, static_argnames="train")
+
+
+def jax_init(module, *args, **kwargs):
+    """``module``'s flax variables, initialised by a jitted ``init``. The key
+    is of the ``unsafe_rbg`` implementation: its random bits compile in a
+    third of threefry's time, and the tests read only the spread of the
+    draws, not their values."""
+    import jax
+
+    return jax.jit(module.init, static_argnames=tuple(kwargs))(
+        jax.random.key(0, impl="unsafe_rbg"), *args, **kwargs)
+
+
+def perturbed(tree, seed: int, scale: float = 0.05):
+    """``tree`` (flax variables) plus seeded normal noise, as float32 numpy:
+    offsets, masks and flows that initialise to zero become non-zero."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + rng.normal(0, scale, a.shape).astype(np.float32), tree)
+
+
+def smooth_pair(b: int, h: int, w: int, seed: int):
+    """``b`` smooth random textures (bilinear upsampling of coarse noise, one
+    value per 8 pixels) and their copies shifted by (1, 2) pixels, float32
+    ``(b, h, w, 3)`` each."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(seed)
+    coarse = torch.from_numpy(rng.random((b, 3, h // 8 + 2, w // 8 + 2), dtype=np.float32))
+    tex = F.interpolate(coarse, size=(h + 8, w + 8), mode="bilinear", align_corners=True)
+    tex = tex.permute(0, 2, 3, 1).numpy()
+    return tex[:, 4:4 + h, 4:4 + w].copy(), tex[:, 5:5 + h, 6:6 + w].copy()
+
+
+def run_in(base: Path, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with ``base`` as the working directory (the
+    entry points read the config's relative roots and ``exps/`` from it)."""
+    cwd = os.getcwd()
+    os.chdir(base)
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        os.chdir(cwd)

@@ -22,7 +22,9 @@ the JAX CLI); ``synthetic`` scores 64 held-out scenes of the procedural
 generator at 256x448 with the config's seed. ``--tile N`` tiles frames
 larger than N pixels with a per-pair, flow-sized overlap
 (:func:`..parallel.spatial.make_flow_aware_tiled`); smaller frames run
-whole. The JAX CLI's ``--window_sampling`` is not ported yet and raises.
+whole. IFRNet cannot be tiled (it returns no flow pyramid to size the
+overlap): ``--tile`` with it fails before the model runs. The JAX CLI's
+``--window_sampling`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -95,7 +97,10 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = dataclasses.replace(cfg, compute_dtype="float32")
     model = load_model(cfg, ckpt, device=args.device)
     print(f"Number of params: {sum(p.numel() for p in model.parameters())}")
-    infer = make_infer(model, args.tile)
+    try:
+        infer = make_infer(model, args.tile)
+    except ValueError as e:
+        raise SystemExit(f"{cfg.model_name}: {e}") from None
     device = next(model.parameters()).device
     if args.benchmark == "vimeo90k":
         return validate_vimeo90k(infer, cfg.root, batch_size=args.batch_size,

@@ -1,8 +1,10 @@
 """Flax parameter trees <-> PyTorch parameters of the port's modules.
 
 The port's modules carry the flax module names (``feature_encoder``,
-``proj_res.block0``, ``movement_res.conv2_prelu``, ...), so a flax path
-``a/b/kernel`` becomes the key ``a.b.weight``. Layout rules are those of
+``proj_res.block0``, ``movement_res.conv2_prelu``; IFRNet's
+``encoder.p1_down``, ``decoder4.up``; DAT-TPU's ``dat_lv1.attn.k_proj``,
+``dat_lv3.conv_group_offset``, ...), so a flax path ``a/b/kernel``
+becomes the key ``a.b.weight``. Layout rules are those of
 ``videoframeinterpolation_tpu/interop/torch_export.py:36-49``:
 
   * Conv (kh, kw, I, O) -> Conv2d (O, I, kh, kw);

@@ -36,9 +36,14 @@ port's own codec, :mod:`.data.png`) or ``.npy`` arrays; a frame is written
 in the format its name ends in. In sequence mode the ``.png`` or ``.npy``
 files of ``--in_dir`` (one format) are read in sorted order and the output
 is written as ``%06d.png`` (``%06d.npy`` for ``.npy`` frames).
-``--config`` names a preset of :data:`..config.PRESETS`; ``--ckpt``
-defaults to its committed checkpoint, and may name another flax msgpack
-checkpoint of the same architecture.
+``--config`` names a preset of :data:`..config.PRESETS`, whose ``--ckpt``
+defaults to its committed checkpoint, or a YAML file of any ported model
+(``configs/IFRNet.yaml``, ``configs/DAT_TPU.yaml``, ...), which needs
+``--ckpt``: a flax msgpack checkpoint of the config's architecture, such as
+the port's trainer writes. IFRNet returns no flow pyramid to size the
+tiles' overlap, so ``--tile`` with it fails before the model runs. (The
+JAX CLI's probe finds no ``pred_ft0`` either; it warns and tiles with a
+guessed 32-px overlap, which may seam where the motion is larger.)
 
 :func:`load_model` serves a config in its ``compute_dtype``, as the JAX
 CLI does: the presets (their YAMLs) in bf16, a config with
@@ -58,7 +63,7 @@ import torch
 from .config import PRESETS, Config
 from .data import InputPadder, decode_png, encode_png
 from .interop import params_from_flax
-from .models import create_model, multi_t_apply
+from .models import IFRNet, create_model, multi_t_apply
 from .parallel.spatial import make_flow_aware_multi_t, make_flow_aware_tiled
 from .train import read_flax_msgpack
 
@@ -88,6 +93,19 @@ def load_model(cfg: Config, ckpt: str | Path, device: str = "cuda") -> torch.nn.
     return model.to(device).eval()
 
 
+def config_and_ckpt(config: str, ckpt: str | None):
+    """``(config, checkpoint)`` of ``--config`` and ``--ckpt``: a preset and
+    its committed checkpoint (or ``ckpt``), or a YAML file and ``ckpt``,
+    which it then needs."""
+    if config in PRESETS:
+        preset = PRESETS[config]
+        return preset.config, ckpt or preset.ckpt
+    if not ckpt:
+        raise SystemExit(f"--config {config}: a YAML file needs --ckpt (a flax msgpack "
+                         "checkpoint of its model)")
+    return Config.from_yaml(config, exp_name="infer"), ckpt
+
+
 def read_frame(path: str | Path) -> np.ndarray:
     """A frame from a ``.png`` or ``.npy`` file."""
     path = Path(path)
@@ -113,12 +131,24 @@ def _train_apply(m, a, b, t, train):
     return m(a, b, t, train=train)
 
 
+def _check_tileable(model: torch.nn.Module) -> None:
+    """Flow-aware tiling sizes the overlap from the model's ``train=True``
+    flow pyramids (``pred_ft0``), which IFRNet does not return: refuse it
+    rather than guess the overlap."""
+    if isinstance(model, IFRNet):
+        raise ValueError("--tile needs a model that returns its flow pyramid (pred_ft0), "
+                         "which sizes the tiles' overlap; IFRNet returns none, so it runs "
+                         "whole frames only (drop --tile)")
+
+
 def make_infer(model: torch.nn.Module, tile: int = 0):
     """``infer(x0, x1, t)``: the model's forward, or with ``tile`` its
     flow-aware tiled forward (:func:`..parallel.spatial.make_flow_aware_tiled`,
-    probed through the model's ``train=True`` flow pyramids)."""
+    probed through the model's ``train=True`` flow pyramids; a model
+    without them raises)."""
     if not tile:
         return model
+    _check_tileable(model)
     return make_flow_aware_tiled(lambda m, a, b, t: m(a, b, t), model, tile,
                                  train_apply_fn=_train_apply)
 
@@ -129,6 +159,7 @@ def make_multi_infer(model: torch.nn.Module, ts, tile: int = 0):
     (:func:`..parallel.spatial.make_flow_aware_multi_t`)."""
     if not tile:
         return lambda a, b: multi_t_apply(model, a, b, ts)
+    _check_tileable(model)
     return make_flow_aware_multi_t(lambda m, a, b: multi_t_apply(m, a, b, ts), model, tile, ts,
                                    train_apply_fn=_train_apply)
 
@@ -214,9 +245,11 @@ def _check_frames(named: list[tuple[str, np.ndarray]]) -> None:
 
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description="PyTorch/CUDA VFI inference")
-    parser.add_argument("--config", choices=sorted(PRESETS), default="DAT_fast")
+    parser.add_argument("--config", default="DAT_fast",
+                        help=f"a preset ({', '.join(sorted(PRESETS))}) or a YAML file")
     parser.add_argument("--ckpt", default=None,
-                        help="flax msgpack checkpoint (default: the preset's)")
+                        help="flax msgpack checkpoint (default: the preset's; required with "
+                             "a YAML file)")
     parser.add_argument("--frame0", help="pair mode: an RGB .png or (H, W, 3) uint8 .npy")
     parser.add_argument("--frame1", help="pair mode: an RGB .png or (H, W, 3) uint8 .npy")
     parser.add_argument("--out", help="pair mode: output .png or .npy")
@@ -238,6 +271,7 @@ def main(argv: list[str] | None = None) -> None:
     args = parser.parse_args(argv)
 
     # cheap argument validation before the (slow) model load
+    cfg, ckpt = config_and_ckpt(args.config, args.ckpt)
     if args.in_dir:
         if args.mode == "recursive" and args.factor & (args.factor - 1):
             raise SystemExit("--mode recursive needs a power-of-2 --factor; "
@@ -262,8 +296,11 @@ def main(argv: list[str] | None = None) -> None:
         img0, img1 = read_frame(args.frame0), read_frame(args.frame1)
         _check_frames([("--frame0", img0), ("--frame1", img1)])
 
-    preset = PRESETS[args.config]
-    model = load_model(preset.config, args.ckpt or preset.ckpt, device=args.device)
+    model = load_model(cfg, ckpt, device=args.device)
+    try:
+        infer = make_infer(model, args.tile)
+    except ValueError as e:
+        raise SystemExit(f"--config {args.config}: {e}") from None
     if args.in_dir:
         out_dir = Path(args.out_dir or "interp_out")
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -273,8 +310,7 @@ def main(argv: list[str] | None = None) -> None:
             write_frame(out_dir / f"{i:06d}{suffix}", fr)
         print(f"wrote {len(seq)} frames to {out_dir}")
     else:
-        write_frame(args.out, interp_pair(model, img0, img1, args.t,
-                                          make_infer(model, args.tile)))
+        write_frame(args.out, interp_pair(model, img0, img1, args.t, infer))
         print(f"wrote {args.out}")
 
 

@@ -1,16 +1,22 @@
 """Model registry (counterpart of ``videoframeinterpolation_tpu/models/__init__.py``).
 
-Only the flagship is ported so far. ``compute_dtype`` maps as in the JAX
-registry (``videoframeinterpolation_tpu/models/__init__.py:32-36``).
+Ported: the flagship ``DATwConstantnC`` (alias ``DATwConstantnCv1``),
+``IFRNet`` and ``DATwConstantnCTPU``, each built from a ``Config`` as the
+JAX registry builds it (``videoframeinterpolation_tpu/models/__init__.py:39-91``);
+the archive families are not ported yet. ``compute_dtype`` maps as in the
+JAX registry (``videoframeinterpolation_tpu/models/__init__.py:32-36``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from ..config import Config
 from .base import multi_t_apply
-from .dat import DATwConstantnC, dat_loss
+from .dat import CoarseToFineDAT, DATwConstantnC, dat_loss
+from .dat_tpu import DATwConstantnCTPU, dat_tpu_loss
+from .ifrnet import IFRNet, ifrnet_loss
 
 
 def _dat(c: Config, dtype: torch.dtype) -> DATwConstantnC:
@@ -24,7 +30,22 @@ def _dat(c: Config, dtype: torch.dtype) -> DATwConstantnC:
         ref_offset_units=c.dat_ref_offset_units, compute_dtype=dtype)
 
 
-MODEL_REGISTRY = {"DATwConstantnC": _dat, "DATwConstantnCv1": _dat}
+def _dat_tpu(c: Config, dtype: torch.dtype) -> DATwConstantnCTPU:
+    return DATwConstantnCTPU(
+        nf=c.nf, enc_res_blocks=c.enc_res_blocks, dec_res_blocks=c.dec_res_blocks,
+        mlp_ratio=c.mlp_ratio, radii=tuple(c.radii),
+        offset_sets=(tuple(tuple(o) for o in c.offset_sets)
+                     if c.offset_sets is not None else None),
+        n_offset_groups=tuple(c.n_offset_groups), compute_dtype=dtype)
+
+
+def _ifrnet(c: Config, dtype: torch.dtype) -> IFRNet:
+    # As in JAX, the widths are IFRNet's own, not the config's ``channels``.
+    return IFRNet(compute_dtype=dtype)
+
+
+MODEL_REGISTRY = {"DATwConstantnC": _dat, "DATwConstantnCv1": _dat,
+                  "DATwConstantnCTPU": _dat_tpu, "IFRNet": _ifrnet}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -37,7 +58,7 @@ def compute_dtype(cfg: Config) -> torch.dtype:
                          f"expected one of {sorted(DTYPES)}") from None
 
 
-def create_model(cfg: Config, params_dtype: torch.dtype | None = None) -> DATwConstantnC:
+def create_model(cfg: Config, params_dtype: torch.dtype | None = None) -> nn.Module:
     """Build ``cfg``'s model, computing in ``cfg.compute_dtype``, with its
     parameters in ``params_dtype`` (default: the compute dtype).
 
@@ -55,5 +76,6 @@ def create_model(cfg: Config, params_dtype: torch.dtype | None = None) -> DATwCo
     return build(cfg, dtype).to(params_dtype or dtype)
 
 
-__all__ = ["DATwConstantnC", "compute_dtype", "create_model", "dat_loss", "multi_t_apply",
+__all__ = ["CoarseToFineDAT", "DATwConstantnC", "DATwConstantnCTPU", "IFRNet", "compute_dtype",
+           "create_model", "dat_loss", "dat_tpu_loss", "ifrnet_loss", "multi_t_apply",
            "MODEL_REGISTRY"]

@@ -20,10 +20,11 @@ def multi_t_apply(model, x0: torch.Tensor, x1: torch.Tensor, ts) -> torch.Tensor
     """All intermediate frames of one pair, the encoder run once.
 
     Counterpart of ``videoframeinterpolation_tpu/models/base.py:multi_t_apply``:
-    for a model with the staged ``encode``/``decode`` API (the flagship
-    ``DATwConstantnC``), the t-invariant encoder pyramid runs once and
-    ``decode`` runs per instant, so factor-N upsampling pays one encoder
-    per pair instead of one per output frame. Each frame equals
+    for a model with the staged ``encode``/``decode`` API (the DAT family,
+    ``models/dat.py:CoarseToFineDAT``; IFRNet has none and raises), the
+    t-invariant encoder pyramid runs once and ``decode`` runs per instant,
+    so factor-N upsampling pays one encoder per pair instead of one per
+    output frame. Each frame equals
     ``model(x0, x1, t)``: the same operations on the same inputs.
 
     Args:
@@ -36,6 +37,9 @@ def multi_t_apply(model, x0: torch.Tensor, x1: torch.Tensor, ts) -> torch.Tensor
     """
     if not ts:
         raise ValueError("multi_t_apply needs at least one instant")
+    if not hasattr(model, "decode"):
+        raise ValueError(f"{type(model).__name__} has no staged encode/decode: serve its "
+                         "instants one forward each (--mode recursive)")
     feats, mean = model.encode(x0, x1)
     B = x0.shape[0]
     return torch.stack([

@@ -10,6 +10,8 @@
 
 ``forward(..., train=True)`` also returns the flow pyramids the training
 loss reads, and :func:`dat_loss` is that loss (JAX ``models/dat.py:207-236``).
+:class:`CoarseToFineDAT` is the skeleton the flagship shares with DAT-TPU
+(``models/dat_tpu.py``), which replaces the deformable attention levels.
 The model computes in ``compute_dtype`` whatever the dtype of its
 parameters: fp32 master parameters when it trains, parameters cast once
 to the compute dtype when it serves.
@@ -37,37 +39,23 @@ from ..nn import (
 from .base import norm_w_rgb_mean
 
 
-class DATwConstantnC(nn.Module):
-    def __init__(self, nf: int = 72, enc_res_blocks: int = 5, dec_res_blocks: int = 10,
-                 mlp_ratio: float = 2.0, window_sampling: bool = False,
-                 shared_offsets: bool | tuple = False, n_samples: tuple = (8, 16, 32),
-                 attn_strides: tuple = (1, 1, 1), movement_nf: tuple | None = None,
-                 ref_offset_units: bool = False, compute_dtype: torch.dtype = torch.float32):
+class CoarseToFineDAT(nn.Module):
+    """The DAT family's skeleton: the encoder, the query builder, the
+    transposed-conv upsamplers between the levels and the generator. A
+    subclass adds the three cross-attention levels ``dat_lv3``, ``dat_lv2``
+    and ``dat_lv1``, each taking ``(feat_t, feat0, feat1, ft0, ft1)``; the
+    first two also return the next level's flows."""
+
+    def __init__(self, nf: int, enc_res_blocks: int, dec_res_blocks: int,
+                 compute_dtype: torch.dtype):
         super().__init__()
         self.nf = nf
         self.compute_dtype = compute_dtype
-        so = shared_offsets
-        so3, so2, so1 = (so, so, so) if isinstance(so, bool) else tuple(so)
-        ns3, ns2, ns1 = n_samples
-        st3, st2, st1 = attn_strides
-        mv3, mv2, mv1 = movement_nf or (None, None, None)
-        common = dict(mlp_ratio=mlp_ratio, window_sampling=window_sampling,
-                      ref_offset_units=ref_offset_units)
         self.feature_encoder = SameChannelResEncoder(nf, enc_res_blocks)
         self.coarse_query_builder = DCNInterFeatBuilderWithT(nf)
         self.lv4_to_lv3 = conv_transpose_x2(nf + 4, nf + 4)
-        self.dat_lv3 = CrossDeformableAttentionBlock(
-            nf, nf, n_samples=ns3, n_groups=4, n_heads=4, offset_scale=2.0,
-            shared_offsets=so3, attn_stride=st3, movement_nf=mv3, **common)
         self.lv3_to_lv2 = conv_transpose_x2(nf, nf)
-        self.dat_lv2 = CrossDeformableAttentionBlock(
-            nf, nf, n_samples=ns2, n_groups=8, n_heads=8, offset_scale=4.0,
-            shared_offsets=so2, attn_stride=st2, movement_nf=mv2, **common)
         self.lv2_to_lv1 = conv_transpose_x2(nf, nf)
-        self.dat_lv1 = CrossDeformableAttentionBlock(
-            nf, nf, n_samples=ns1, n_groups=8, n_heads=8, offset_scale=8.0,
-            pred_res_flow=False, shared_offsets=so1, attn_stride=st1,
-            movement_nf=mv1, **common)
         self.pixel_generator = BasicResPixelShuffleGenerator(nf, dec_res_blocks)
 
     @property
@@ -85,8 +73,8 @@ class DATwConstantnC(nn.Module):
         return feats, mean
 
     def decode(self, feats, mean: torch.Tensor, t: torch.Tensor, train: bool = False):
-        """The t-dependent stage: query building, the deformable
-        cross-attention pyramid and the pixel generator. With ``train`` it
+        """The t-dependent stage: query building, the cross-attention
+        pyramid and the pixel generator. With ``train`` it
         returns ``(frame, intermediates)``: ``pred_ft0`` and ``pred_ft1``,
         each level's flows resized to full resolution (x2, x4, x8, x16 for
         levels 1-4), their magnitudes left in the level's pixel units."""
@@ -120,6 +108,32 @@ class DATwConstantnC(nn.Module):
         and, with ``train``, the flow pyramids of :meth:`decode`."""
         feats, mean = self.encode(x0, x1)
         return self.decode(feats, mean, t, train=train)
+
+
+class DATwConstantnC(CoarseToFineDAT):
+    def __init__(self, nf: int = 72, enc_res_blocks: int = 5, dec_res_blocks: int = 10,
+                 mlp_ratio: float = 2.0, window_sampling: bool = False,
+                 shared_offsets: bool | tuple = False, n_samples: tuple = (8, 16, 32),
+                 attn_strides: tuple = (1, 1, 1), movement_nf: tuple | None = None,
+                 ref_offset_units: bool = False, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(nf, enc_res_blocks, dec_res_blocks, compute_dtype)
+        so = shared_offsets
+        so3, so2, so1 = (so, so, so) if isinstance(so, bool) else tuple(so)
+        ns3, ns2, ns1 = n_samples
+        st3, st2, st1 = attn_strides
+        mv3, mv2, mv1 = movement_nf or (None, None, None)
+        common = dict(mlp_ratio=mlp_ratio, window_sampling=window_sampling,
+                      ref_offset_units=ref_offset_units)
+        self.dat_lv3 = CrossDeformableAttentionBlock(
+            nf, nf, n_samples=ns3, n_groups=4, n_heads=4, offset_scale=2.0,
+            shared_offsets=so3, attn_stride=st3, movement_nf=mv3, **common)
+        self.dat_lv2 = CrossDeformableAttentionBlock(
+            nf, nf, n_samples=ns2, n_groups=8, n_heads=8, offset_scale=4.0,
+            shared_offsets=so2, attn_stride=st2, movement_nf=mv2, **common)
+        self.dat_lv1 = CrossDeformableAttentionBlock(
+            nf, nf, n_samples=ns1, n_groups=8, n_heads=8, offset_scale=8.0,
+            pred_res_flow=False, shared_offsets=so1, attn_stride=st1,
+            movement_nf=mv1, **common)
 
 
 def dat_loss(img_pred: torch.Tensor, intermediates: dict, batch: dict,

@@ -1,4 +1,4 @@
-"""Neural network modules of the serving path (NHWC)."""
+"""Neural network modules of the port's models (NHWC)."""
 
 from .blocks import (
     ConvPReLU,
@@ -9,12 +9,14 @@ from .blocks import (
     ResBlocks,
     conv,
     conv_transpose_x2,
+    sigmoid,
 )
-from .encoders import SameChannelResEncoder
+from .encoders import IFRNetEncoder, SameChannelResEncoder
 from .dcn_layer import DeformableConv2d
 from .query_builder import DCNInterFeatBuilderWithT
 from .deformable_attn import CrossDeformableAttentionBlock, SampleAttention
 from .generator import BasicResPixelShuffleGenerator
+from .local_attn import LocalWindowCrossAttentionBlock, ShiftWindowSampleAttention
 
 __all__ = [
     "ConvPReLU",
@@ -25,10 +27,14 @@ __all__ = [
     "ResBlocks",
     "conv",
     "conv_transpose_x2",
+    "sigmoid",
+    "IFRNetEncoder",
     "SameChannelResEncoder",
     "DeformableConv2d",
     "DCNInterFeatBuilderWithT",
     "CrossDeformableAttentionBlock",
     "SampleAttention",
     "BasicResPixelShuffleGenerator",
+    "LocalWindowCrossAttentionBlock",
+    "ShiftWindowSampleAttention",
 ]

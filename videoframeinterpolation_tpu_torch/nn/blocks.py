@@ -210,6 +210,27 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return (0.5 * x) * torch.erfc(-x.float() * sqrt_half).to(x.dtype)
 
 
+class _Logistic(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.reciprocal(1.0 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        (y,) = ctx.saved_tensors
+        return grad * (y * (1.0 - y))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA computes it: ``1 / (1 + exp(-x))``, each
+    step rounded to ``x``'s dtype (in bf16, ``torch.sigmoid``'s single
+    rounding differs in a quarter of the values), and the gradient as
+    JAX's rule gives it, ``g * (y * (1 - y))``."""
+    return _Logistic.apply(x)
+
+
 class FeedForward(nn.Module):
     """Per-pixel MLP: Dense, exact (erf) GELU, Dense."""
 

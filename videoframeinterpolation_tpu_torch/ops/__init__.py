@@ -4,7 +4,8 @@ from .interp import grid_sample, resize_bilinear, resize_linear_antialias, scale
 from .warp import bwarp
 from .dcn import deform_conv2d
 from .pixelshuffle import pixel_shuffle
-from .losses import (charbonnier_ada, charbonnier_l1, get_robust_weight, ternary_loss)
+from .losses import (charbonnier_ada, charbonnier_l1, geometry_loss, get_robust_weight,
+                     ternary_loss)
 
 __all__ = [
     "grid_sample",
@@ -16,6 +17,7 @@ __all__ = [
     "pixel_shuffle",
     "charbonnier_ada",
     "charbonnier_l1",
+    "geometry_loss",
     "get_robust_weight",
     "ternary_loss",
 ]

@@ -1,8 +1,10 @@
 """Bilinear sampling and resizing (counterpart of ``videoframeinterpolation_tpu/ops/interp.py``).
 
-NHWC throughout, coordinates in pixel units with ``align_corners=True``
-semantics (pixel ``i`` sits at coordinate ``i``). Written with floor,
-gather and weights as the JAX function is, so the two agree tap for tap:
+NHWC throughout, sampling coordinates in pixel units with
+``align_corners=True`` semantics (pixel ``i`` sits at coordinate ``i``);
+``resize_bilinear`` also takes ``align_corners=False``, IFRNet's resize.
+Sampling is written with floor, gather and weights as the JAX function is,
+so the two agree tap for tap:
 
   * ``border`` clamps the continuous coordinate before the taps, as
     ``min(max(x, 0), W - 1)``, so that a coordinate on a bound passes half
@@ -80,13 +82,17 @@ def grid_sample(img: torch.Tensor, coords: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=64)
-def _interp_weights(in_size: int, out_size: int) -> np.ndarray:
-    """Static ``(out_size, in_size)`` 1-D linear-interpolation matrix,
-    align_corners=True."""
+def _interp_weights(in_size: int, out_size: int, align_corners: bool = True) -> np.ndarray:
+    """Static ``(out_size, in_size)`` 1-D linear-interpolation matrix. With
+    ``align_corners=False`` the sample of output ``i`` lies at ``(i + 0.5)
+    * in / out - 0.5``, clamped to ``[0, in - 1]``."""
     if out_size == 1:
         src = np.zeros((1,), np.float64)
-    else:
+    elif align_corners:
         src = np.arange(out_size, dtype=np.float64) * (in_size - 1) / (out_size - 1)
+    else:
+        src = (np.arange(out_size, dtype=np.float64) + 0.5) * (in_size / out_size) - 0.5
+        src = np.clip(src, 0.0, in_size - 1)
     lo = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
     hi = np.minimum(lo + 1, in_size - 1)
     w_hi = src - lo
@@ -97,15 +103,17 @@ def _interp_weights(in_size: int, out_size: int) -> np.ndarray:
     return mat
 
 
-def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Separable bilinear resize (align_corners=True) of ``(B, H, W, C)`` to
-    ``out_hw``, with the same interpolation matrices as the JAX function."""
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int], *,
+                    align_corners: bool = True) -> torch.Tensor:
+    """Separable bilinear resize of ``(B, H, W, C)`` to ``out_hw``
+    (``F.interpolate(..., "bilinear", align_corners=...)``), with the same
+    interpolation matrices as the JAX function."""
     B, H, W, C = x.shape
     Ho, Wo = out_hw
     if (Ho, Wo) == (H, W):
         return x
-    mh = torch.from_numpy(_interp_weights(H, Ho)).to(x.device, x.dtype)
-    mw = torch.from_numpy(_interp_weights(W, Wo)).to(x.device, x.dtype)
+    mh = torch.from_numpy(_interp_weights(H, Ho, align_corners)).to(x.device, x.dtype)
+    mw = torch.from_numpy(_interp_weights(W, Wo, align_corners)).to(x.device, x.dtype)
     x = torch.einsum("oh,bhwc->bowc", mh, x)
     return torch.einsum("ow,bhwc->bhoc", mw, x)
 

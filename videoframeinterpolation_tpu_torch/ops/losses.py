@@ -1,8 +1,8 @@
-"""The flagship's training losses (counterpart of ``videoframeinterpolation_tpu/ops/losses.py``).
+"""The training losses of the DAT family and IFRNet (counterpart of ``videoframeinterpolation_tpu/ops/losses.py``).
 
 NHWC tensors, flows ``(..., 2)``. The census patches are extracted by a
-convolution with an identity kernel, as in JAX. ``geometry_loss`` and
-``offset_fidelity_loss`` are not ported yet: no DAT path reads them.
+convolution with an identity kernel, as in JAX. ``offset_fidelity_loss``
+is not ported yet: no ported model reads it.
 """
 
 from __future__ import annotations
@@ -57,6 +57,23 @@ def ternary_loss(x: torch.Tensor, y: torch.Tensor, patch_size: int = 7) -> torch
     dx = _census_transform(gx, patch_size)
     dy = _census_transform(gy, patch_size).detach()
     diff = dx - dy
+    dist = (diff ** 2 / (0.1 + diff ** 2)).mean(dim=-1, keepdim=True)
+    return (dist * _valid_mask(x.shape, patch_size, x.dtype, x.device)).mean()
+
+
+def geometry_loss(x: torch.Tensor, y: torch.Tensor, patch_size: int = 3) -> torch.Tensor:
+    """Per-channel census loss between two feature maps ``(B, H, W, C)``
+    over ``patch_size`` patches; neither side is detached (IFRNet's
+    feature-vs-feature loss)."""
+    if x.shape != y.shape:
+        raise ValueError(f"geometry_loss: shapes differ, {tuple(x.shape)} and {tuple(y.shape)}")
+    B, H, W, C = x.shape
+
+    def transform(t):
+        d = _census_transform(t.permute(0, 3, 1, 2).reshape(B * C, H, W, 1), patch_size)
+        return d.reshape(B, C, H, W, -1).permute(0, 2, 3, 1, 4).reshape(B, H, W, -1)
+
+    diff = transform(x) - transform(y)
     dist = (diff ** 2 / (0.1 + diff ** 2)).mean(dim=-1, keepdim=True)
     return (dist * _valid_mask(x.shape, patch_size, x.dtype, x.device)).mean()
 

@@ -13,7 +13,12 @@ one machine can be held against another's.
     ``tri_testlist.txt``; a training tree also has ``tri_trainlist.txt``
     and, per training sequence, ``flow/<seq>/flow_t0.flo`` and
     ``flow_t1.flo``: the scene's true flows from t = 0.5 to frames 0 and 1,
-    in pixels (training scenes of the generator's training split);
+    in pixels (training scenes of the generator's training split); with a
+    ``flow_dir`` also ``<flow_dir>/<seq>/flow_01.npy`` and ``flow_10.npy``,
+    the true flows from frame 0 to frame 1 and back, in pixels
+    (``SyntheticMotion.frame_flows``: the same layers' displacements between
+    times 0 and 1, weighted by their visibility in the start frame), which
+    IFRNet's config reads (``distill_bwd: false``);
   * UCF101: ``datasets/UCF-101/test/<n>/frame_{00,01_gt,02}.png``;
   * SNU-FILM: ``datasets/SNU-FILM/test/<seq>/{0,1,2}.png`` and
     ``test-{easy,medium,hard,extreme}.txt``, each line ``i0 gt i1`` with
@@ -69,10 +74,12 @@ VIMEO_TRAIN_NAME = "{:05d}/0002"   # training sequences; the test split's are ..
 
 
 def write_vimeo90k_train_sequence(root: str | Path, index: int, hw: tuple[int, int],
-                                  seed: int) -> None:
+                                  seed: int, flow_dir: str | None = None) -> None:
     """Training sequence ``index`` of a Vimeo90K tree under ``root``:
     scene ``index`` of the generator's training split at t = 0.5, its
-    frames as PNG and its true flows t->0 and t->1 (pixels) as ``.flo``."""
+    frames as PNG and its true flows t->0 and t->1 (pixels) as ``.flo``;
+    with ``flow_dir``, also its true flows 0->1 and 1->0 (pixels) as
+    ``<flow_dir>/<seq>/flow_01.npy`` and ``flow_10.npy``."""
     item = SyntheticMotion(crop_hw=hw, is_train=True, seed=seed, num_items=index + 1,
                            flow_in_pixels=True, fixed_t=0.5)[index]
     root = Path(root)
@@ -83,6 +90,21 @@ def write_vimeo90k_train_sequence(root: str | Path, index: int, hw: tuple[int, i
     flow.mkdir(parents=True, exist_ok=True)
     write_flo(str(flow / "flow_t0.flo"), item["f0x"])
     write_flo(str(flow / "flow_t1.flo"), item["f1x"])
+    if flow_dir is not None:
+        write_vimeo90k_forward_flows(root, index, hw, seed, flow_dir)
+
+
+def write_vimeo90k_forward_flows(root: str | Path, index: int, hw: tuple[int, int], seed: int,
+                                 flow_dir: str) -> None:
+    """Training sequence ``index``'s true flows 0->1 and 1->0 (pixels), as
+    ``<flow_dir>/<seq>/flow_01.npy`` and ``flow_10.npy`` under ``root``."""
+    ds = SyntheticMotion(crop_hw=hw, is_train=True, seed=seed, num_items=index + 1,
+                         flow_in_pixels=True)
+    forward = Path(root) / flow_dir / VIMEO_TRAIN_NAME.format(index + 1)
+    forward.mkdir(parents=True, exist_ok=True)
+    f01, f10 = ds.frame_flows(index)
+    np.save(forward / "flow_01.npy", f01)
+    np.save(forward / "flow_10.npy", f10)
 
 
 def write_vimeo90k_trainlist(root: str | Path, n_train: int) -> None:
@@ -92,14 +114,15 @@ def write_vimeo90k_trainlist(root: str | Path, n_train: int) -> None:
 
 
 def write_vimeo90k_train(base: str | Path, n_train: int, train_hw: tuple[int, int],
-                         test_hws, seed: int) -> Path:
+                         test_hws, seed: int, flow_dir: str | None = None) -> Path:
     """A Vimeo90K tree with a training split of ``n_train`` sequences at
-    ``train_hw`` (:func:`write_vimeo90k_train_sequence`) and the test split
-    of :func:`write_vimeo90k`; returns the root."""
+    ``train_hw`` (:func:`write_vimeo90k_train_sequence`, with the forward
+    flows under ``flow_dir`` where one is given) and the test split of
+    :func:`write_vimeo90k`; returns the root."""
     root = write_vimeo90k(base, test_hws, seed)
     write_vimeo90k_trainlist(root, n_train)
     for i in range(n_train):
-        write_vimeo90k_train_sequence(root, i, train_hw, seed)
+        write_vimeo90k_train_sequence(root, i, train_hw, seed, flow_dir)
     return root
 
 

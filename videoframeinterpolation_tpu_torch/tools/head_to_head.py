@@ -6,8 +6,11 @@
         --teacher_shared --teacher_samples 8,16,8 --distill_w 1.0 \
         --out_dir runs/ [--resume] [--stop_at N] [--device cuda]
 
-Trains the flagship from scratch (or, with ``--resume``, from
-``<out_dir>/<tag>.ckpt``) on the quality study's fixed pool of
+Trains a DAT-family model (the flagship ``DATwConstantnCv1``, or
+``DATwConstantnCTPU``, with ``--dilated`` for the dilated taps
+``OFFSET_SETS`` and ``--goff`` for 4/8/8 learned offset groups) from
+scratch (or, with ``--resume``, from ``<out_dir>/<tag>.ckpt``) on the
+quality study's fixed pool of
 ``SyntheticMotion`` scenes, with the JAX tool's recipe: bf16 compute over
 fp32 master parameters, AdamW over the warmup-cosine schedule
 (``start_lr`` 2e-4 to ``end_lr`` 1e-5 at ``--steps``), the flagship's loss
@@ -27,9 +30,9 @@ under ``tools/quality/results`` are never appended to. ``--chunk`` is the
 number of steps between two reads of the loss on the host (the JAX tool
 scans that many steps in one dispatch); it must divide ``--eval_every``
 and ``--steps``. Options of the JAX tool that the port does not have yet
-(``--dilated``, ``--goff``, ``--attn_stride``, ``--movement_nf``,
-``--shared_levels``, ``--random_t``, ``--host_pool``, ``--teacher_nf``,
-``--dec_res_blocks`` other than 10) raise ``NotImplementedError``.
+(``--attn_stride``, ``--movement_nf``, ``--shared_levels``, ``--random_t``,
+``--host_pool``, ``--teacher_nf``, ``--dec_res_blocks`` other than 10)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,9 +55,12 @@ from .eval_best import build_pool, score
 
 # The JAX tool's options that the port does not have yet, with the value
 # that leaves them off.
-UNPORTED = {"dilated": False, "goff": False, "attn_stride": 1, "movement_nf": None,
-            "shared_levels": None, "random_t": None, "host_pool": False, "teacher_nf": None,
-            "dec_res_blocks": 10}
+UNPORTED = {"attn_stride": 1, "movement_nf": None, "shared_levels": None, "random_t": None,
+            "host_pool": False, "teacher_nf": None, "dec_res_blocks": 10}
+# DAT-TPU's dilated per-axis taps at levels 3, 2 and 1 (--dilated), and its
+# learned offset groups (--goff), as the JAX tool sets them.
+OFFSET_SETS = ((-2, -1, 0, 1, 2), (-4, -2, -1, 0, 1, 2, 4), (-6, -4, -2, -1, 0, 1, 2, 4, 6))
+OFFSET_GROUPS = (4, 8, 8)
 
 
 def recover_best(jsonl_path: Path) -> tuple[float, int]:
@@ -85,7 +91,8 @@ def batch_sampler(seed: int, pool: int, batch: int, step0: int = 0) -> np.random
 def result_tag(args: argparse.Namespace) -> str:
     """The JAX tool's tag for the options the port has."""
     samples = tuple(int(x) for x in args.samples.split(",")) if args.samples else None
-    return (args.model + ("_shared" if args.shared else "")
+    return (args.model + ("_dilated" if args.dilated else "") + ("_goff" if args.goff else "")
+            + ("_shared" if args.shared else "")
             + ("_s" + "-".join(map(str, samples)) if samples else "")
             + ((f"_distill{args.distill_w}"
                 + (("T" + "-".join(args.teacher_samples.split(",")))
@@ -122,6 +129,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--teacher_samples", default=None,
                     help="teacher per-level samples, e.g. 8,16,8 (default 8,16,32)")
     ap.add_argument("--shared", action="store_true", help="shared offsets at every level")
+    ap.add_argument("--dilated", action="store_true",
+                    help="DAT-TPU: dilated window taps (OFFSET_SETS)")
+    ap.add_argument("--goff", action="store_true",
+                    help="DAT-TPU: learned per-group offsets (4, 8, 8 groups)")
     ap.add_argument("--samples", default=None,
                     help="per-level samples 'lv3,lv2,lv1' (default 8,16,32)")
     ap.add_argument("--stop_at", type=int, default=None,
@@ -162,7 +173,9 @@ def main(argv: list[str] | None = None) -> dict:
     samples = tuple(int(x) for x in args.samples.split(",")) if args.samples else (8, 16, 32)
     cfg = Config(model_name=args.model, nf=args.nf, compute_dtype="bfloat16", start_lr=2e-4,
                  end_lr=1e-5, last_lr_decay_iter=args.steps, warmup_steps=args.warmup,
-                 seed=args.seed, shared_offsets=bool(args.shared), dat_samples=samples)
+                 seed=args.seed, shared_offsets=bool(args.shared), dat_samples=samples,
+                 offset_sets=OFFSET_SETS if args.dilated else None,
+                 n_offset_groups=OFFSET_GROUPS if args.goff else (0, 0, 0))
     torch.manual_seed(cfg.seed)
     model = create_model(cfg, torch.float32).to(device)
     n_params = sum(p.numel() for p in model.parameters())
@@ -179,8 +192,11 @@ def main(argv: list[str] | None = None) -> dict:
     if args.distill_from:
         t_samples = (tuple(int(x) for x in args.teacher_samples.split(","))
                      if args.teacher_samples else (8, 16, 32))
+        # The student's architecture with the teacher's offsets and samples,
+        # and neither dilated taps nor offset groups, as the JAX tool builds it.
         t_cfg = dataclasses.replace(cfg, shared_offsets=bool(args.teacher_shared),
-                                    dat_samples=t_samples)
+                                    dat_samples=t_samples, offset_sets=None,
+                                    n_offset_groups=(0, 0, 0))
         teacher = load_model(t_cfg, args.distill_from, device=device)
         for p in teacher.parameters():
             p.requires_grad_(False)

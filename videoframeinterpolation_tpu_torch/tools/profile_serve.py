@@ -1,12 +1,16 @@
 """Where a 448x256 request's time goes on the card: a torch.profiler trace.
 
-    python -m videoframeinterpolation_tpu_torch.tools.profile_serve [--out chiprun_out/profile_serve.json]
+    python -m videoframeinterpolation_tpu_torch.tools.profile_serve \
+        [--config DAT_fast|configs/IFRNet.yaml --ckpt c.ckpt] [--out profile_serve.json]
 
-Serves the shipped DAT_fast student through ``load_model``, as the CLI
-serves it (the config's bf16, TF32 off, cuDNN's default algorithm choice),
-at B=1, 448x256. Traces ``--requests`` requests after warm-up, and prints
-the device kernels by total time, the deformable sampler's share, and the
-device's busy share of the traced wall time. Needs a CUDA device.
+Serves a model through ``load_model``, as the CLI serves it (the config's
+compute dtype, TF32 off, cuDNN's default algorithm choice), at B=1,
+448x256: a preset of :data:`..config.PRESETS` with its committed
+checkpoint (default: the shipped DAT_fast student), or a YAML file of any
+ported model with ``--ckpt``. Traces ``--requests`` requests after
+warm-up, and prints the device kernels by total time, the device
+operations per request, the deformable sampler's share, and the device's
+busy share of the traced wall time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -20,12 +24,18 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..config import DAT_fast
-from ..interpolate import SHIPPED_STUDENT, load_model
+from ..config import PRESETS
+from ..interpolate import config_and_ckpt, load_model
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> dict:
+    """Profile as the arguments say; returns the summary."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", default="DAT_fast",
+                        help=f"a preset ({', '.join(sorted(PRESETS))}) or a YAML file")
+    parser.add_argument("--ckpt", default=None,
+                        help="flax msgpack checkpoint (default: the preset's; required with "
+                             "a YAML file)")
     parser.add_argument("--requests", type=int, default=5)
     parser.add_argument("--top", type=int, default=25)
     parser.add_argument("--out", default=None, help="write the summary as JSON here")
@@ -33,7 +43,8 @@ def main(argv: list[str] | None = None) -> None:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip()
-    model = load_model(DAT_fast, SHIPPED_STUDENT)
+    cfg, ckpt = config_and_ckpt(args.config, args.ckpt)
+    model = load_model(cfg, ckpt)
     gen = torch.Generator(device="cuda").manual_seed(0)
     x0 = torch.rand((1, 256, 448, 3), generator=gen, device="cuda")
     x1 = torch.roll(x0, (2, 4), dims=(1, 2))
@@ -67,7 +78,11 @@ def main(argv: list[str] | None = None) -> None:
     sampler = [r for r in rows if "deformable_sample_kernel" in r["kernel"]]
     summary = {
         "card": card,
+        "config": args.config,
+        "model": cfg.model_name,
+        "dtype": cfg.compute_dtype,
         "requests": args.requests,
+        "device_ops_per_request": sum(e.count for e in kernels) / args.requests,
         "ms_per_frame_cuda_events": frame_ms,
         "wall_ms_per_request": wall_ms / args.requests,
         "device_busy_ms_per_request": busy_ms / args.requests,
@@ -83,6 +98,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(summary, indent=1))
+    return summary
 
 
 if __name__ == "__main__":

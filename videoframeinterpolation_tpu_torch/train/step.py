@@ -4,9 +4,10 @@ The JAX package compiles forward, loss, backward and the AdamW update into
 one XLA program per step (or per chunk of steps, ``lax.scan``). PyTorch
 runs them eagerly, one step per call of :func:`train_step`; a batch is a
 dict of tensors on the model's device (``x0``, ``x1``, ``xt``, ``t`` and,
-for flow distillation, ``f0x``, ``f1x``). Only the flagship's recipes are
-ported: :func:`make_loss_fn` and :func:`make_distill_loss_fn` for
-``DATwConstantnC``. The log keys are JAX's. ``model`` may be wrapped in
+for flow distillation, ``f0x``, ``f1x``). :func:`make_loss_fn` has the
+recipes of the DAT family (the flagship and DAT-TPU: ``dat_loss``) and of
+IFRNet (``ifrnet_loss``); :func:`make_distill_loss_fn` adds the teacher
+term to the DAT family's. The log keys are JAX's. ``model`` may be wrapped in
 ``DistributedDataParallel`` (:mod:`..parallel.ddp`): the loss calls the
 wrapper, which averages the gradients over the processes.
 """
@@ -18,7 +19,8 @@ from typing import Callable
 import torch
 
 from ..config import Config
-from ..models.dat import DATwConstantnC, dat_loss
+from ..models.dat import CoarseToFineDAT, dat_loss
+from ..models.ifrnet import IFRNet, ifrnet_loss
 from ..ops import charbonnier_l1
 from .state import TrainState
 
@@ -31,23 +33,39 @@ def _unwrapped(model: torch.nn.Module) -> torch.nn.Module:
 
 
 def make_loss_fn(model: torch.nn.Module, cfg: Config) -> LossFn:
-    """``loss_fn(batch) -> (loss, log)`` of the model's own recipe."""
-    if not isinstance(_unwrapped(model), DATwConstantnC):
-        raise ValueError(f"no loss ported for model {type(model).__name__}")
+    """``loss_fn(batch) -> (loss, log)`` of the model's own recipe. For
+    IFRNet the geometry loss encodes the mean-normalised ground truth
+    with the model's own encoder; ``distill_lambda: null`` reads as 0."""
+    inner = _unwrapped(model)
+    if isinstance(inner, CoarseToFineDAT):
 
-    def loss_fn(batch):
-        pred, inter = model(batch["x0"], batch["x1"], batch["t"], train=True)
-        return dat_loss(pred, inter, batch, cfg.distill_lambda)
+        def loss_fn(batch):
+            pred, inter = model(batch["x0"], batch["x1"], batch["t"], train=True)
+            return dat_loss(pred, inter, batch, cfg.distill_lambda)
 
-    return loss_fn
+        return loss_fn
+
+    if isinstance(inner, IFRNet):
+        distill_lambda = cfg.distill_lambda if cfg.distill_lambda is not None else 0.0
+
+        def loss_fn(batch):
+            pred, inter = model(batch["x0"], batch["x1"], batch["t"], train=True)
+            gt_feats = inner.encode(batch["xt"] - inter["mean"])
+            return ifrnet_loss(pred, inter, batch, gt_feats, geo_lambda=cfg.geo_lambda,
+                               distill_lambda=distill_lambda)
+
+        return loss_fn
+
+    raise ValueError(f"no loss ported for model {type(inner).__name__}")
 
 
 def make_distill_loss_fn(model: torch.nn.Module, teacher: torch.nn.Module, cfg: Config,
                          distill_w: float) -> LossFn:
     """The model's recipe plus output-space teacher distillation,
     ``distill_w * Charbonnier(pred - pred_teacher)``. The teacher is frozen:
-    it runs its serving forward under ``torch.no_grad``."""
-    if not isinstance(_unwrapped(model), DATwConstantnC):
+    it runs its serving forward under ``torch.no_grad``. The student is
+    of the DAT family (the flagship or DAT-TPU), as in JAX."""
+    if not isinstance(_unwrapped(model), CoarseToFineDAT):
         raise ValueError(f"no distillation recipe for model {type(model).__name__}")
 
     def loss_fn(batch):

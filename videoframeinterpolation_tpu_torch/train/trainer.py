@@ -319,7 +319,8 @@ class Trainer:
     def _log_images(self, batch: dict) -> None:
         """Prediction strip ``[avg | pred | gt | err]`` and the 10-panel flow
         pyramid ``[ft0_4..ft0_1 | pseudo-GT ft0, ft1 | ft1_1..ft1_4]``
-        (reference ``models/DAT.py:40-72``), of the batch's first item."""
+        (reference ``models/DAT.py:40-72``; the pseudo-GT pair alone for a
+        model without ``pred_ft0``), of the batch's first item."""
         try:
             x0, x1, t = (torch.from_numpy(batch[k][:1]).to(self.device)
                          for k in ("x0", "x1", "t"))
@@ -332,9 +333,10 @@ class Trainer:
             panels = {"pred": np.concatenate([(x0n + x1n) / 2, pred, xt, np.abs(xt - pred)],
                                              axis=1)}
             if "f0x" in batch:
-                flows = ([f[0].float().cpu().numpy() for f in reversed(inter["pred_ft0"])]
+                p0, p1 = inter.get("pred_ft0", []), inter.get("pred_ft1", [])
+                flows = ([f[0].float().cpu().numpy() for f in reversed(p0)]
                          + [batch["f0x"][0], batch["f1x"][0]]
-                         + [f[0].float().cpu().numpy() for f in inter["pred_ft1"]])
+                         + [f[0].float().cpu().numpy() for f in p1])
                 panels["flow"] = self._flow_strip(flows, (H, W))
             self.logger.add_image_summary(panels)
         except Exception:   # logging must never kill training

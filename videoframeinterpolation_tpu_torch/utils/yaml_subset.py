@@ -10,8 +10,9 @@ gives (PyYAML's YAML 1.1 rules for plain scalars) for:
     ``yes``, ``off``, ...), null (``null``, ``~`` or nothing), or a plain,
     single-quoted or double-quoted string;
   * flow lists of scalars, nested or not (``[8, 8, 2]``), and ``[]``/``{}``;
-  * block lists of scalars or flow lists, indented under their key
-    (``  - vimeo90k``) or at the key's own indent (``- 16``, as
+  * block lists of scalars, flow lists or block lists of the same,
+    indented under their key (``  - vimeo90k``) or at the key's own indent
+    (``- 16``, and ``- - -2`` / ``  - -1`` for a list of lists, as
     ``yaml.safe_dump`` writes them);
   * nested maps of the same (``teacher_overrides:`` / ``  dat_samples:`` /
     ``  - 8``).
@@ -246,9 +247,17 @@ class _Block:
     def sequence(self, indent: int) -> list:
         out = []
         while (line := self.peek()) is not None and line.indent == indent and self.is_item(line):
-            item = line.text[1:].strip()
-            if not item or self.is_item(_Line(0, 0, item)):
+            rest = line.text[1:]
+            item = rest.strip()
+            if not item:
                 _fail(self.source, line.number, "a nested block inside a list item")
+            if self.is_item(_Line(0, 0, item)):
+                # A list inside the list: its first item on this line, the
+                # rest below it, at the column where that item starts.
+                column = indent + 1 + len(rest) - len(rest.lstrip())
+                self.lines[self.i] = _Line(line.number, column, item)
+                out.append(self.sequence(column))
+                continue
             if re.match(r"[^'\"\[{][^#]*?:( |$)", item):
                 _fail(self.source, line.number, "a map inside a list")
             out.append(parse_value(item, self.source, line.number))
@@ -348,18 +357,32 @@ def _dump_into(out: list[str], data: dict, indent: int) -> None:
                 out.append(f"{head} []")
                 continue
             out.append(head)
-            for item in v:
-                if isinstance(item, (list, tuple, dict)):
-                    raise YamlSubsetError(f"{key}: a nested list or map in a list")
-                out.append(f"{pad}- {_scalar(item)}")
+            out += _sequence_lines(key, v, indent)
         else:
             out.append(f"{head} {_scalar(v)}")
 
 
+def _sequence_lines(key: str, items, indent: int) -> list[str]:
+    """A block list at ``indent``; a list inside it starts on its item's
+    line and goes on two columns further in."""
+    out = []
+    for item in items:
+        if isinstance(item, dict):
+            raise YamlSubsetError(f"{key}: a map in a list")
+        if isinstance(item, (list, tuple)) and item:
+            inner = _sequence_lines(key, item, indent + 2)
+            out.append(" " * indent + "- " + inner[0][indent + 2:])
+            out += inner[1:]
+        else:
+            out.append(" " * indent + "- " + ("[]" if isinstance(item, (list, tuple))
+                                              else _scalar(item)))
+    return out
+
+
 def dumps(data: dict) -> str:
-    """``data`` (str keys; scalars, lists of scalars and maps of the same
-    as values) laid out as ``yaml.safe_dump(data, sort_keys=False)`` lays
-    it out."""
+    """``data`` (str keys; scalars, lists of scalars or of such lists, and
+    maps of the same as values) laid out as ``yaml.safe_dump(data,
+    sort_keys=False)`` lays it out."""
     out: list[str] = []
     _dump_into(out, data, 0)
     return "".join(line + "\n" for line in out)
