@@ -59,7 +59,10 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
   5. times: ms/frame at 448x256 in bf16 and in fp32 and, per DAT level
      of every shape of phase 2's level sets
      (``tools/perf/sampler_probe.py``), the sampler's time beside its
-     bound, its plain version's time and F.grid_sample's time;
+     bound, its plain version's time and F.grid_sample's time; the same
+     for the stride arm's strided level 1 (``sampler_probe.main(2)`` and
+     ``main_backward(2)``, on ``F.grid_sample``'s and
+     ``grid_sampler_2d_backward``'s same coordinates);
   6. gather: the two gather probes
      (``videoframeinterpolation_tpu_torch.tools.perf.gather_probe`` and
      ``.lane_gather_probe``) at every shape: one checked launch each,
@@ -163,16 +166,47 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      SSIM of the same on the CPU. (c) ``tools/head_to_head.py`` on the
      variant for 20 steps on a 64-scene pool, its records under JAX's tag
      (``FAMILY_H2H_TAG``), ms per step;
- 13. shapes (runs last): every level shape at which phases 3-12, 14 and 15
-     launched the sampler (recorded at each launch, the children's too) is
-     listed; any that phase 2 did not hold is held here as phase 2 holds
-     its cases (one needing 64-bit indices fails: it belongs in
-     ``WIDE_CASES``); so is every level shape of a backward launch that
-     ``BACKWARD_CASES`` does not list, on its planned path.
+ 16. variants (runs after 15): the flagship's variants. (a) The sampler
+     and its backward on the query grid of stride 2 (``STRIDED_CASES``: the
+     stride arm's served lv1, feat (2, 128, 224, 72), G 1, S 16; its
+     training lv1 at B2 16, 64x64; a non-shared shape, G 8 of 9 channels;
+     flows that put taps past every border), held as phase 2 holds its
+     cases, on both backward paths and every width (phase 5 times them).
+     (b) The quality
+     study's two arms (``VARIANTS``: ``configs/DAT_fast.yaml`` with samples
+     8/8/16 and lv1 at stride 2, or samples 8/8/2 and movement widths
+     72/72/36), each with a TrainState drawn with numpy from
+     ``VARIANT_SEED``, written by the port's writer and served through
+     ``load_model`` from a YAML in bf16: four 448x256 requests, 3 launches
+     each (lv1 strided for the stride arm); one request card against CPU as
+     in phase 4; the fp32 frame on ``FAMILY_SCENE`` against the JAX
+     package's CPU read (``JAX_VARIANTS``) as in phase 15; ms per frame and
+     ``tools/profile_serve.py``'s busy share. (c) ``evaluate --benchmark
+     synthetic --ssim`` on the shipped student with and without
+     ``--window_sampling`` on phase 11's scenes, equal bit for bit (both
+     with cuDNN's deterministic algorithms) and within 0.005 dB of phase
+     11's read; ``interpolate --window_sampling``, its frame equal to the
+     unflagged run's; the committed ``DAT`` with
+     ``dat_ref_offset_units``, card against CPU and against JAX's read.
+     (d) One fp32 step of the stride arm card against CPU to phase 10
+     (a)'s limits (the strided backward runs in it), and
+     ``tools/head_to_head.py`` on each arm for 20 steps on a 64-scene pool
+     (``VARIANT_H2H_ARMS``): JAX's tag, the record's n_params, ms per step,
+     peak memory, 3 forward and 3 backward launches per step (the stride
+     arm's lv1 strided both ways);
+ 13. shapes (runs last): every level shape at which phases 3-12, 14, 15 and
+     16 launched the sampler (recorded at each launch, the children's too,
+     with the query grid's stride) is listed; any that phase 2 or 16 did
+     not hold is held here as phase 2 holds its cases (one needing 64-bit
+     indices fails: it belongs in ``WIDE_CASES``); so is every level shape
+     of a backward launch that ``BACKWARD_CASES`` or ``STRIDED_CASES`` does
+     not list, on its planned path.
 
 Each path's sampler launches (forward and backward) are counted from 0
 just before it runs and read just after; the kernels line gives them per
-path, and the backward's also per backward path. Phase 5 also times the
+path, and the backward's also per backward path; the strided launches of
+phase 16 are the entries ``deformable_sample_strided`` and
+``deformable_sample_backward_strided``. Phase 5 also times the
 backward at the student's training levels on its planned path and on the
 global path (``sampler_probe.main_backward``), and fails unless one call
 on each path issues the device operations ``BWD_DEVICE_OPS`` gives it (2 on
@@ -378,6 +412,38 @@ FAMILY_PROFILE_STEPS = (5, 7)
 FAMILY_H2H = ["--model", "DATwConstantnCTPU", "--dilated", "--goff", "--steps", "20",
               "--pool", "64", "--chunk", "10", "--eval_every", "20", "--warmup", "5"]
 FAMILY_H2H_TAG = "DATwConstantnCTPU_dilated_goff_0k"
+# Phase 16 (variants): the quality study's two arms of the flagship at full
+# width, configs/DAT_fast.yaml (nf 72, 5 and 10 residual blocks, shared
+# offsets) with each arm's fields. No checkpoint of either is committed: each
+# TrainState is drawn with numpy from VARIANT_SEED (seeded_state).
+VARIANTS = {"stride_arm": {"dat_samples": [8, 8, 16], "dat_attn_stride": [1, 1, 2]},
+            "movement_arm": {"dat_samples": [8, 8, 2], "dat_movement_nf": [72, 72, 36]}}
+VARIANT_SEED = 16
+# The JAX package's CPU fp32 read of each arm's frame, and of the committed DAT
+# checkpoint served with dat_ref_offset_units, on FAMILY_SCENE at t = 0.5,
+# (PSNR dB against the true middle frame, the frame's mean), printed by
+#   JAX_PLATFORMS=cpu python tests/jax_cpu_reads.py --part variants
+JAX_VARIANTS = {"stride_arm": (19.18512757950843, 0.5130276850458835),
+                "movement_arm": (19.262677338541817, 0.4796249087573545),
+                "DAT_ref_offset_units": (43.831387732732935, 0.4893518048669908)}
+# The sampler on the stride arm's query grid of stride 2: (B2, H, W, C, G, S,
+# residual scale, flow magnitude), H x W the feature grid: the served lv1 of a
+# 448x256 request, the lv1 of a training batch (8 pairs of 128x128), a
+# non-shared shape (G 8, 9 channels each) and flows that put taps past every
+# border.
+STRIDED_CASES = {"served_stride_arm_lv1": (2, 128, 224, 72, 1, 16, 8.0, 4.0),
+                 "train_stride_arm_lv1": (16, 64, 64, 72, 1, 16, 8.0, 4.0),
+                 "non_shared_cg9": (2, 16, 24, 72, 8, 4, 8.0, 4.0),
+                 "past_borders": (2, 10, 14, 40, 8, 3, 30.0, 40.0)}
+# The quality study's trainer on each arm: 20 steps on a 64-scene pool, its
+# flags, JAX's tag and the record's n_params.
+VARIANT_H2H = ["--model", "DATwConstantnCv1", "--steps", "20", "--pool", "64", "--chunk", "10",
+               "--eval_every", "20", "--warmup", "5"]
+VARIANT_H2H_ARMS = {
+    "stride_arm": (["--shared", "--samples", "8,8,16", "--attn_stride", "2"],
+                   "DATwConstantnCv1_shared_s8-8-16_stride2_0k", 4_712_375),
+    "movement_arm": (["--shared", "--samples", "8,8,2", "--movement_nf", "72,72,36"],
+                     "DATwConstantnCv1_shared_s8-8-2_mv72-72-36_0k", 4_275_595)}
 # An index of K x N >= 2^31 elements (64-bit indices): 2^24 + 1 rows of a
 # 1024-row bf16 table, checked at its first and last rows.
 ROW_WIDE = (1024, 128, 2 ** 24 + 1, torch.bfloat16)
@@ -391,6 +457,25 @@ WIDE_CASES = {"1080p_non_shared_lv1": (2, 544, 960, 72, 8, 32, 8.0),
 
 def emit(obj) -> None:
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def reset_sampler_counts() -> None:
+    """Set every launch count of the sampler's wrapper to 0."""
+    from videoframeinterpolation_tpu_torch.kernels import deformable_sample as ds
+
+    ds.launches = ds.bf16_launches = ds.strided_launches = 0
+    ds.backward_launches = ds.strided_backward_launches = 0
+    ds.backward_path_launches.update(dict.fromkeys(ds.backward_path_launches, 0))
+
+
+def sampler_counts() -> dict:
+    """The sampler's launch counts since :func:`reset_sampler_counts`."""
+    from videoframeinterpolation_tpu_torch.kernels import deformable_sample as ds
+
+    return {"forward": ds.launches, "bf16_forward": ds.bf16_launches,
+            "strided_forward": ds.strided_launches, "backward": ds.backward_launches,
+            "strided_backward": ds.strided_backward_launches,
+            "backward_by_path": dict(ds.backward_path_launches)}
 
 
 class Phase:
@@ -464,16 +549,18 @@ def path_level_sets(sampler_probe) -> dict:
 
 
 def level_shape(feat: torch.Tensor, residual: torch.Tensor) -> tuple:
-    """``(B2, H, W, C, G, S)`` of one sampler call."""
-    return (*feat.shape, residual.shape[3], residual.shape[4])
+    """``(B2, H, W, C, G, S, stride)`` of one sampler call: the feature
+    grid, the groups and samples, and the query grid's stride over it."""
+    return (*feat.shape, residual.shape[3], residual.shape[4], feat.shape[1] // residual.shape[1])
 
 
-def check_sampler_case(name: str, feat32, flow32, res32, offset: int, reached: set) -> float:
-    """The sampler at one case, in fp32 and bf16, against the fp32 sampling
-    of its inputs rounded once: through the wrapper (the vector and index
-    width it picks), then at every narrower vector width and both index
-    widths (``reached`` collects each instance run). Returns the wrapper's
-    max abs error."""
+def check_sampler_case(name: str, feat32, flow32, res32, offset: int, reached: set,
+                       stride: int = 1) -> float:
+    """The sampler at one case (on a query grid of ``stride``), in fp32 and
+    bf16, against the fp32 sampling of its inputs rounded once: through the
+    wrapper (the vector and index width it picks), then at every narrower
+    vector width and both index widths (``reached`` collects each instance
+    run). Returns the wrapper's max abs error."""
     from videoframeinterpolation_tpu_torch.kernels.window_sample import (
         _index_bits, _launch, _vector_bytes, deformable_sample)
 
@@ -483,18 +570,19 @@ def check_sampler_case(name: str, feat32, flow32, res32, offset: int, reached: s
         flow, res = flow32.to(dtype), res32.to(dtype)
         B2, h, w, C = feat.shape
         G, S = res.shape[3], res.shape[4]
-        ref = sampler_ref(feat, flow, res)
-        out = deformable_sample(feat, flow, res, G)
+        ref = sampler_ref(feat, flow, res, stride)
+        out = deformable_sample(feat, flow, res, G, stride=stride)
         torch.cuda.synchronize()
         plan = (_vector_bytes(C, G, feat.element_size(), feat.data_ptr(), out.data_ptr()),
-                _index_bits(B2, h, w, C, G, S))
+                _index_bits(B2, h, w, C, G, S, stride))
         # Every narrower width and the 64-bit index on the same inputs.
         checked = {plan: out}
         width = plan[0]
         while width >= feat.element_size():
             for bits in (32, 64):
                 if (width, bits) not in checked:
-                    checked[width, bits] = _launch(feat, flow, res, G, width, bits)
+                    checked[width, bits] = _launch(feat, flow, res, G, width, bits,
+                                                   stride=stride)
             width //= 2
         torch.cuda.synchronize()
         for (width, bits), got in checked.items():
@@ -505,7 +593,7 @@ def check_sampler_case(name: str, feat32, flow32, res32, offset: int, reached: s
                                      f"V={width} {bits}-bit: {err} > {SAMPLER_TOL}")
         err = (out.float() - ref).abs().max().item()
         worst = max(worst, err)
-        emit({"case": name, "dtype": str(dtype), "shape": list(res.shape),
+        emit({"case": name, "dtype": str(dtype), "shape": list(res.shape), "stride": stride,
               "feat_offset_bytes": feat.data_ptr() % 16, "vector_bytes": plan[0],
               "index_bits": plan[1], "instances": sorted(checked), "max_abs_err": err,
               **({"max_err_in_ulps": bf16_ulps(out.float(), ref)}
@@ -514,7 +602,7 @@ def check_sampler_case(name: str, feat32, flow32, res32, offset: int, reached: s
     return worst
 
 
-def sampler_ref(feat, flow, res):
+def sampler_ref(feat, flow, res, stride: int = 1):
     """The sampler's reference: in fp32 it must equal its plain version; in
     bf16 it takes res + flow in fp32 (as the plain version does), samples
     in fp32 and rounds once, so it must equal the fp32 sampling of the same
@@ -524,7 +612,7 @@ def sampler_ref(feat, flow, res):
         _grouped_deformable_sample)
 
     ref = _grouped_deformable_sample(
-        feat.float(), res.float() + flow.float()[:, :, :, None, None, :], res.shape[3])
+        feat.float(), res.float() + flow.float()[:, :, :, None, None, :], res.shape[3], stride)
     return ref.to(feat.dtype).float()
 
 
@@ -628,7 +716,7 @@ def main() -> int:
                 del feat, flow, res, out
             del wide
             torch.cuda.empty_cache()
-            checked_shapes.add((B2, h, w, C, G, S))
+            checked_shapes.add((B2, h, w, C, G, S, 1))
         need = ({("torch.float32", v, b) for v in (16, 8, 4) for b in (32, 64)}
                 | {("torch.bfloat16", v, b) for v in (16, 8, 4, 2) for b in (32, 64)}
                 | {("torch.float32", "wide", 64), ("torch.bfloat16", "wide", 64)})
@@ -701,6 +789,17 @@ def main() -> int:
         del model32
         per_level = sampler_probe.main()
         per_level_bwd = sampler_probe.main_backward()
+        # The stride arm's strided level 1 (phase 16 holds its kernels).
+        strided = {"forward": sampler_probe.main(stride=2),
+                   "backward": sampler_probe.main_backward(stride=2)}
+        served, trained = (strided["forward"]["stride_arm"]["bfloat16"]["lv1"],
+                           strided["backward"]["bfloat16"]["lv1"])
+        emit({"strided_sampler_speed": {
+            "served_lv1_bf16": {k: served[k] for k in ("ms", "bound_ms", "library_ms",
+                                                       "share_of_bound", "library_over_kernel")},
+            "train_lv1_bf16_backward": {k: trained[k] for k in (
+                "ms", "global_ms", "bound_ms", "library_ms", "share_of_bound")},
+            "card": card}})
         # The main path's levels: the shared-offset student in bf16.
         shared = list(per_level["shared"]["bfloat16"].values())
         emit({"sampler_speed": {
@@ -714,12 +813,13 @@ def main() -> int:
                                     for name, r in rows.items()},
             "card": card}})
         bwd_ops, want_ops = {}, {}
-        for dtype, rows in per_level_bwd.items():
-            for name, r in rows.items():
-                for run, path in (("planned", r["plan"]["path"]), ("global", "global")):
-                    key = f"{dtype}_{name}_{run}_{path}"
-                    bwd_ops[key] = len(r["device_ops"][run])
-                    want_ops[key] = BWD_DEVICE_OPS[path][dtype]
+        for prefix, by_dtype in (("", per_level_bwd), ("strided_", strided["backward"])):
+            for dtype, rows in by_dtype.items():
+                for name, r in rows.items():
+                    for run, path in (("planned", r["plan"]["path"]), ("global", "global")):
+                        key = f"{prefix}{dtype}_{name}_{run}_{path}"
+                        bwd_ops[key] = len(r["device_ops"][run])
+                        want_ops[key] = BWD_DEVICE_OPS[path][dtype]
         emit({"backward_device_ops_per_call": bwd_ops})
         if bwd_ops != want_ops:
             raise AssertionError(f"backward device operations per call {bwd_ops}, "
@@ -768,9 +868,10 @@ def main() -> int:
     with Phase("train"):
         train = check_train(card, path_launches)
 
+    synthetic = {}
     with tempfile.TemporaryDirectory(prefix="vfi_eval_") as tmp:
         with Phase("evaluate"):
-            hd = check_evaluate(Path(tmp), path_launches)
+            hd, scenes = check_evaluate(Path(tmp), path_launches, synthetic)
         with Phase("serve_hd"):
             check_serve_hd(Path(tmp), hd, model, card, path_launches)
 
@@ -781,34 +882,41 @@ def main() -> int:
         with Phase("families"):
             check_families(Path(tmp), card, path_launches, launched_shapes, launched_backward)
 
+    with tempfile.TemporaryDirectory(prefix="vfi_variants_") as tmp:
+        with Phase("variants"):
+            variants = check_variants(Path(tmp), gen, card, path_launches, scenes,
+                                      synthetic["DAT_fast"])
+    del scenes
+    checked_shapes |= variants["forward_held"]
+
     # Phase 13 runs last, so that it holds the shapes of every path, phases
-    # 14's and 15's included.
+    # 14's, 15's and 16's included.
     with Phase("shapes"):
         late = sorted(launched_shapes - checked_shapes)
         emit({"launched_level_shapes": sorted(launched_shapes), "checked_in_phase_2":
               len(launched_shapes & checked_shapes), "checked_here": late})
-        for B2, h, w, C, G, S in late:
-            if _index_bits(B2, h, w, C, G, S) == 64:
-                raise AssertionError(f"a path launched the sampler at {(B2, h, w, C, G, S)}, "
+        for B2, h, w, C, G, S, st in late:
+            if _index_bits(B2, h, w, C, G, S, st) == 64:
+                raise AssertionError(f"a path launched the sampler at {(B2, h, w, C, G, S, st)}, "
                                      "which needs 64-bit indices: add it to WIDE_CASES")
-            inputs = sampler_probe.level_inputs(gen, B2, h, w, C, G, S, 8.0)
-            err = check_sampler_case(f"launched_{B2}x{h}x{w}x{C}_g{G}_s{S}", *inputs, 0,
-                                     set())
+            inputs = sampler_probe.level_inputs(gen, B2, h, w, C, G, S, 8.0, stride=st)
+            err = check_sampler_case(f"launched_{B2}x{h}x{w}x{C}_g{G}_s{S}_stride{st}", *inputs,
+                                     0, set(), st)
             max_err["deformable_sample"] = max(max_err["deformable_sample"], err)
             del inputs
         # The backward at every level shape a path launched it at and phase
         # 2 did not hold, on its planned path (offset scale 8, flows of 4 px).
-        held = {case[:6] for case in BACKWARD_CASES.values()}
+        held = {(*case[:6], 1) for case in BACKWARD_CASES.values()} | variants["backward_held"]
         late_bwd = sorted(launched_backward - held)
         emit({"launched_backward_level_shapes": sorted(launched_backward),
               "backward_checked_in_phase_2": len(launched_backward & held),
               "backward_checked_here": late_bwd})
-        for B2, h, w, C, G, S in late_bwd:
-            if _index_bits(B2, h, w, C, G, S) == 64:
-                raise AssertionError(f"a path launched the backward at {(B2, h, w, C, G, S)}, "
+        for B2, h, w, C, G, S, st in late_bwd:
+            if _index_bits(B2, h, w, C, G, S, st) == 64:
+                raise AssertionError(f"a path launched the backward at {(B2, h, w, C, G, S, st)}, "
                                      "which needs 64-bit indices: add it to BACKWARD_CASES")
-            errs = check_backward_case(gen, f"launched_{B2}x{h}x{w}x{C}_g{G}_s{S}",
-                                       (B2, h, w, C, G, S, 8.0, 4.0), None)
+            errs = check_backward_case(gen, f"launched_{B2}x{h}x{w}x{C}_g{G}_s{S}_stride{st}",
+                                       (B2, h, w, C, G, S, 8.0, 4.0), None, st)
             bwd_err = (max(bwd_err[0], errs[0]), max(bwd_err[1], errs[1]))
         torch.cuda.empty_cache()
 
@@ -859,6 +967,50 @@ def main() -> int:
         "library_ms": total(bwd, "library_ms"),
         "dtype": "bfloat16",
         "per_level": per_level_bwd,
+        "card": card,
+    })
+    strided_fwd = strided["forward"]["stride_arm"]["bfloat16"]["lv1"]
+    strided_note = ("the same kernel on a query grid of stride 2, the attn_stride variant's "
+                    "level 1: JAX _grouped_deformable_sample(..., stride) "
+                    "(videoframeinterpolation_tpu/nn/deformable_attn.py:83)")
+    kernels.append({
+        "name": "deformable_sample_strided",
+        "route": "cuda",
+        "source": "videoframeinterpolation_tpu_torch/kernels/csrc/deformable_sample.cu",
+        "replaces": "videoframeinterpolation_tpu/kernels/window_sample.py:158",
+        "note": strided_note,
+        "launches": variants["serve_strided_launches"],
+        "launches_per_path": {"serve_stride_arm": variants["serve_strided_launches"],
+                              "head_to_head_stride_arm": variants["train"]["strided_forward"]},
+        "max_abs_err": variants["max_abs_err"],
+        "ms": strided_fwd["ms"],
+        "plain_ms": strided_fwd["plain_ms"],
+        "bound_ms": strided_fwd["bound_ms"],
+        "bound_by": "bytes" if strided_fwd["bytes_ms"] >= strided_fwd["ops_ms"] else "operations",
+        "library_ms": strided_fwd["library_ms"],
+        "dtype": "bfloat16",
+        "per_level": strided["forward"],
+        "card": card,
+    })
+    strided_bwd = strided["backward"]["bfloat16"]["lv1"]
+    kernels.append({
+        "name": "deformable_sample_backward_strided",
+        "route": "cuda",
+        "source": "videoframeinterpolation_tpu_torch/kernels/csrc/deformable_sample.cu",
+        "replaces": "videoframeinterpolation_tpu/kernels/window_sample.py:158",
+        "note": "the backward of " + strided_note,
+        "launches": variants["train"]["strided_backward"],
+        "launches_per_step": variants["train"]["strided_backward"] / 20,
+        "max_abs_err": variants["backward_err"][0],
+        "max_err_over_max_abs": variants["backward_err"][1],
+        "ms": strided_bwd["ms"],
+        "global_ms": strided_bwd["global_ms"],
+        "plain_ms": strided_bwd["plain_ms"],
+        "bound_ms": strided_bwd["bound_ms"],
+        "bound_by": "bytes" if strided_bwd["bytes_ms"] >= strided_bwd["ops_ms"] else "operations",
+        "library_ms": strided_bwd["library_ms"],
+        "dtype": "bfloat16",
+        "per_level": strided["backward"],
         "card": card,
     })
     for name, replaces in (("row_gather", "tools/perf/pallas_gather_probe.py:11"),
@@ -1113,10 +1265,11 @@ def working_directory(path: Path):
         os.chdir(cwd)
 
 
-def check_evaluate(tmp: Path, path_launches: dict):
+def check_evaluate(tmp: Path, path_launches: dict, synthetic: dict):
     """Phase 11 (see the module docstring). Renders the synthetic scenes,
-    the fixture trees and the HD triplet in worker processes; returns the
-    HD triplet for phase 12."""
+    the fixture trees and the HD triplet in worker processes; puts each
+    checkpoint's ``validate_synthetic`` result in ``synthetic``; returns the
+    HD triplet for phase 12 and the rendered scenes for phase 16."""
     from videoframeinterpolation_tpu_torch import evaluate
     from videoframeinterpolation_tpu_torch.eval import benchmarks
     from videoframeinterpolation_tpu_torch.kernels import deformable_sample
@@ -1162,6 +1315,7 @@ def check_evaluate(tmp: Path, path_launches: dict):
                                      "--device", "cuda"])
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - start
+                synthetic[name] = res
                 path_launches[f"evaluate_synthetic_{name}"] = deformable_sample.launches
                 head = per_item[:SYNTHETIC_ITEMS]
                 got_psnr = float(np.mean([p for p, _ in head]))
@@ -1206,7 +1360,7 @@ def check_evaluate(tmp: Path, path_launches: dict):
         if deformable_sample.launches != 3 * forwards or deformable_sample.bf16_launches:
             raise AssertionError(f"{bench} tree: {deformable_sample.launches} launches; "
                                  f"expected {3 * forwards} fp32")
-    return hd
+    return hd, scenes
 
 
 def check_serve_hd(tmp: Path, hd, model, card: str, path_launches: dict) -> None:
@@ -1388,9 +1542,11 @@ def check_backward(gen) -> tuple[float, float]:
     return worst_abs, worst
 
 
-def check_backward_case(gen, name: str, case: tuple, reached: set | None) -> tuple[float, float]:
+def check_backward_case(gen, name: str, case: tuple, reached: set | None,
+                        stride: int = 1) -> tuple[float, float]:
     """The backward at one ``(B2, h, w, C, G, S, offset scale, flow
-    magnitude)`` case in fp32 and bf16 against
+    magnitude)`` case (``h x w`` the feature grid, the queries on the grid
+    of ``stride``) in fp32 and bf16 against
     ``deformable_sample_backward_plain``: on the planned path at the width
     the wrapper picks, twice (``grad_residual`` and ``grad_flow``, summed
     without atomics, must be equal bit for bit over the two; ``grad_feat``,
@@ -1406,7 +1562,7 @@ def check_backward_case(gen, name: str, case: tuple, reached: set | None) -> tup
 
     B2, h, w, C, G, S, scale, flow_mag = case
     worst, worst_abs = 0.0, 0.0
-    feat, flow, res = level_inputs(gen, B2, h, w, C, G, S, scale, flow_mag)
+    feat, flow, res = level_inputs(gen, B2, h, w, C, G, S, scale, flow_mag, stride)
     if name == "integer":
         flow, res = torch.round(flow), torch.round(res)
     if name == "one_pixel":
@@ -1414,16 +1570,16 @@ def check_backward_case(gen, name: str, case: tuple, reached: set | None) -> tup
                                 torch.arange(w, device="cuda", dtype=torch.float32),
                                 indexing="ij")
         flow = torch.stack([3.25 - gx, 2.5 - gy], -1).expand(B2, h, w, 2).contiguous()
-    grad_out = torch.randn((B2, S, h * w, C), generator=gen, device="cuda")
+    grad_out = torch.randn((B2, S, h * w // stride ** 2, C), generator=gen, device="cuda")
     for dtype in (torch.float32, torch.bfloat16):
         args = [x.to(dtype).contiguous() for x in (feat, flow, res, grad_out)]
-        ref = deformable_sample_backward_plain(*args, G)
-        plan = _backward_plan(B2, h, w, C, G, S)
+        ref = deformable_sample_backward_plain(*args, G, stride)
+        plan = _backward_plan(B2, h, w, C, G, S, stride)
         width0 = _vector_bytes(C, G, args[0].element_size(), args[0].data_ptr(),
                                args[3].data_ptr())
         before = deformable_sample.backward_launches
-        planned = _launch_backward(*args, G)
-        again = _launch_backward(*args, G)
+        planned = _launch_backward(*args, G, stride=stride)
+        again = _launch_backward(*args, G, stride=stride)
         checked = {(plan.path, width0, plan.index_bits): planned}
         for path in (dict.fromkeys((plan.path, "global")) if reached is not None else ()):
             forced = plan if path == plan.path else BackwardPlan("global", 0, 0, plan.index_bits)
@@ -1432,7 +1588,7 @@ def check_backward_case(gen, name: str, case: tuple, reached: set | None) -> tup
                 for bits in (32, 64):
                     if (path, width, bits) not in checked:
                         checked[path, width, bits] = _launch_backward(
-                            *args, G, width, bits, forced)
+                            *args, G, width, bits, forced, stride=stride)
                 width //= 2
         torch.cuda.synchronize()
         if deformable_sample.backward_launches != before + len(checked) + 1:
@@ -1463,7 +1619,7 @@ def check_backward_case(gen, name: str, case: tuple, reached: set | None) -> tup
         if dtype == torch.float32:
             worst = max(worst, *errs.values())
         emit({"case": f"backward_{name}", "dtype": str(dtype), "shape": list(res.shape),
-              "plan": plan._asdict(), "vector_bytes": width0,
+              "stride": stride, "plan": plan._asdict(), "vector_bytes": width0,
               "instances": sorted(checked), "coordinate_gradients_reproducible": repro,
               ("max_err_over_max_abs" if dtype == torch.float32 else "max_err_in_ulps"):
               errs})
@@ -1604,10 +1760,7 @@ def check_train(card: str, path_launches: dict) -> dict:
         make_loss = head_to_head.make_distill_loss_fn
         head_to_head.make_distill_loss_fn = counting_teacher_launches(make_loss,
                                                                       teacher_launches)
-        deformable_sample.launches = deformable_sample.bf16_launches = 0
-        deformable_sample.backward_launches = 0
-        deformable_sample.backward_path_launches.update(
-            dict.fromkeys(deformable_sample.backward_path_launches, 0))
+        reset_sampler_counts()
         try:
             out = head_to_head.main(args)
         finally:
@@ -1702,10 +1855,7 @@ def child(kind: str, out: str, argv: list[str]) -> int:
                 return out
 
             setattr(trainer_mod.Trainer, name, counted)
-        deformable_sample.launches = deformable_sample.bf16_launches = 0
-        deformable_sample.backward_launches = 0
-        deformable_sample.backward_path_launches.update(
-            dict.fromkeys(deformable_sample.backward_path_launches, 0))
+        reset_sampler_counts()
         torch.cuda.reset_peak_memory_stats()
         trainer = cli.main(argv)
         torch.cuda.synchronize()
@@ -1985,9 +2135,16 @@ def family_config(name: str, **overrides):
 
 
 def seeded_family_state(name: str):
-    """``(config, TrainState)`` of family ``name`` at full width on the CPU,
-    fp32, with every parameter and moment drawn with numpy from
-    ``FAMILY_SEED`` in the order of the parameters' sorted names: kernels
+    """``(config, TrainState)`` of family ``name`` (:func:`seeded_state` of
+    its config and ``FAMILY_SEED``)."""
+    cfg = family_config(name)
+    return cfg, seeded_state(cfg, FAMILY_SEED)
+
+
+def seeded_state(cfg, seed: int):
+    """The TrainState of ``cfg``'s model at full width on the CPU, fp32,
+    with every parameter and moment drawn with numpy from ``seed`` in the
+    order of the parameters' sorted names: kernels
     ``U(+-1/sqrt(fan_in))`` (the torch-default rule of ``nn/blocks.py``; the
     zero-initialised offset predictors too, so that offsets act), biases
     ``N(0, 0.02)``, PReLU slopes ``0.25 + N(0, 0.02)``; ``mu`` ``N(0,
@@ -2000,11 +2157,10 @@ def seeded_family_state(name: str):
     from videoframeinterpolation_tpu_torch.nn.blocks import _fan_in
     from videoframeinterpolation_tpu_torch.train import create_train_state
 
-    cfg = family_config(name)
     model = create_model(cfg, torch.float32)
     modules = dict(model.named_modules())
     state = create_train_state(model, cfg)
-    rng = np.random.default_rng(FAMILY_SEED)
+    rng = np.random.default_rng(seed)
     with torch.no_grad():
         for key, p in sorted(model.named_parameters()):
             owner, _, leaf = key.rpartition(".")
@@ -2021,7 +2177,7 @@ def seeded_family_state(name: str):
             state.opt_state.exp_avg_sq[key].copy_(
                 torch.from_numpy(rng.uniform(1e-8, 1e-6, p.shape).astype(np.float32)))
     state.step = state.opt_state.count = state.opt_state.schedule_count = FAMILY_STEP
-    return cfg, state
+    return state
 
 
 def frame_psnr(pred: np.ndarray, gt: np.ndarray) -> float:
@@ -2054,92 +2210,85 @@ def check_families(tmp: Path, card: str, path_launches: dict, launched: set,
 
 
 def serve_family(ckpts: Path, name: str, card: str, path_launches: dict) -> None:
-    """Phase 15 (a) for one family: its seeded TrainState written by the
-    port's writer and served through ``load_model`` in the YAML's bf16,
-    four 448x256 requests through ``interp_pair`` with no sampler launch;
-    one request card against CPU (``card_vs_cpu``); the fp32 frame's PSNR
-    and mean against ``JAX_FAMILIES``; ms per frame in bf16 and fp32, and
-    ``tools/profile_serve.py``'s device operations and busy share."""
-    from videoframeinterpolation_tpu_torch.interpolate import interp_pair, load_model
-    from videoframeinterpolation_tpu_torch.kernels import deformable_sample
-    from videoframeinterpolation_tpu_torch.tools import fixtures, profile_serve
-    from videoframeinterpolation_tpu_torch.tools.perf import timing
-    from videoframeinterpolation_tpu_torch.train import state_to_flax, write_flax_state
+    """Phase 15 (a) for one family: :func:`serve_seeded` of its seeded
+    TrainState from its YAML (the variant's written under ``ckpts``), with
+    no sampler launch, against ``JAX_FAMILIES``."""
+    from videoframeinterpolation_tpu_torch.train import state_to_flax
 
     cfg, state = seeded_family_state(name)
-    ckpt = ckpts / f"{name}.ckpt"
-    write_flax_state(ckpt, state_to_flax(state))
-    n_params = sum(p.numel() for p in state.model.parameters())
-    del state
+    serve_seeded(name, family_yaml(ckpts, name, cfg), state_to_flax(state),
+                 ckpts / f"{name}.ckpt", card, path_launches, f"families_{name}",
+                 JAX_FAMILIES[name], launches=0)
+
+
+def serve_seeded(name: str, yaml: Path, tree, ckpt: Path, card: str, path_launches: dict,
+                 path_key: str, reference: tuple, launches: int, strided: int = 0) -> None:
+    """Phases 15 (a) and 16 (b) for one model: its TrainState ``tree``
+    written by the port's writer to ``ckpt`` and served through
+    ``load_model`` from ``yaml`` in the YAML's bf16: four 448x256 requests
+    through ``interp_pair`` (:func:`serve_requests_counted`, ``launches``
+    sampler launches each, ``strided`` of them strided), their launches put
+    in ``path_launches`` under ``path_key``; one request card against CPU
+    (``card_vs_cpu``); the fp32 frame against the JAX package's CPU read
+    ``reference`` (:func:`hold_fp32_frame`); ms per frame in bf16 and fp32,
+    and ``tools/profile_serve.py``'s device operations and busy share."""
+    from videoframeinterpolation_tpu_torch.config import Config
+    from videoframeinterpolation_tpu_torch.interpolate import load_model
+    from videoframeinterpolation_tpu_torch.tools import profile_serve
+    from videoframeinterpolation_tpu_torch.train import write_flax_state
+
+    write_flax_state(ckpt, tree)
+    cfg = Config.from_yaml(yaml)
     model = load_model(cfg, ckpt, device="cuda")
     if model.dtype != torch.bfloat16 or cfg.compute_dtype != "bfloat16":
         raise AssertionError(f"{name} served in {model.dtype}, its YAML says {cfg.compute_dtype}")
-    f0, mid, f1 = fixtures.triplet(*FAMILY_SCENE)
-    deformable_sample.launches = deformable_sample.bf16_launches = 0
-    deformable_sample.backward_launches = 0
-    served = []
-    for t in (0.5, 0.25, 0.5, 0.75):
-        start = time.perf_counter()
-        pred = interp_pair(model, f0, f1, t)
-        torch.cuda.synchronize()
-        served.append({"t": t, "host_ms": round((time.perf_counter() - start) * 1e3, 3),
-                       "psnr_vs_mid": round(psnr(pred, mid), 3)})
-        if pred.shape != mid.shape or pred.dtype != np.uint8:
-            raise AssertionError(f"{name}: got {pred.dtype} {pred.shape}")
-    path_launches[f"families_{name}"] = deformable_sample.launches
-    emit({"family": name, "yaml": FAMILIES[name], "params": n_params, "dtype": str(model.dtype),
-          "requests": served, "sampler_launches": deformable_sample.launches,
-          "sampler_backward_launches": deformable_sample.backward_launches})
-    if deformable_sample.launches or deformable_sample.backward_launches:
-        raise AssertionError(f"{name} launched the deformable sampler, which it does not use")
-
-    x0, x1 = (torch.from_numpy(f.astype(np.float32) / 255.0)[None] for f in (f0, f1))
-    t5 = torch.full((1, 1, 1, 1), 0.5)
+    served = serve_requests_counted(model, name, launches, strided)
+    path_launches[path_key] = launches * len(served)
+    if strided:
+        path_launches[f"{path_key}_strided"] = strided * len(served)
+    emit({"model": name, "yaml": yaml.name, "params": sum(p.numel() for p in model.parameters()),
+          "dtype": str(model.dtype), "requests": served, "launches_per_request": launches,
+          "strided_launches_per_request": strided})
+    _, _, _, x0, x1, t5 = scene_inputs()
     model32 = card_vs_cpu(cfg, ckpt, model, x0, x1, t5)
-    torch.set_num_threads(1)
-    xs = (x0.cuda(), x1.cuda(), t5.cuda())
-    with torch.inference_mode():
-        frame = model32(*xs)[0].cpu().numpy()
-        ms = {f"ms_per_frame_448x256_{k}": timing.loop_ms(lambda: m(*xs), 20, warmup=5) / 20
-              for k, m in (("bf16", model), ("fp32", model32))}
-    read = {"psnr": frame_psnr(frame, mid), "mean": float(frame.mean(dtype=np.float64))}
-    ref_psnr, ref_mean = JAX_FAMILIES[name]
-    emit({"family": name, "fp32_frame": read, "jax_cpu_fp32": {"psnr": ref_psnr, "mean": ref_mean},
-          "psnr_minus_jax_cpu": read["psnr"] - ref_psnr, "mean_minus_jax_cpu": read["mean"] - ref_mean,
-          **ms, "card": card})
-    if not (abs(read["psnr"] - ref_psnr) <= EVAL_PSNR_TOL
-            and abs(read["mean"] - ref_mean) <= FAMILY_MEAN_TOL):
-        raise AssertionError(f"{name}: fp32 frame {read} against JAX's CPU read "
-                             f"{(ref_psnr, ref_mean)}")
+    hold_fp32_frame(model32, name, reference, card, model)
     del model, model32
     torch.cuda.empty_cache()
-    summary = profile_serve.main(["--config", str(family_yaml(ckpts, name, cfg)), "--ckpt",
-                                  str(ckpt), "--requests", "5"])
-    emit({"family": name, "profile_serve": {k: v for k, v in summary.items() if k != "top"},
+    summary = profile_serve.main(["--config", str(yaml), "--ckpt", str(ckpt), "--requests", "5"])
+    emit({"model": name, "profile_serve": {k: v for k, v in summary.items() if k != "top"},
           "top_device_ops": summary["top"][:8]})
     if not summary["device_busy_ms_per_request"] > 0:
         raise AssertionError(f"{name}: the profile shows no device time: {summary}")
 
 
 def family_step_card_vs_cpu(ckpt: Path, name: str) -> None:
-    """Phase 15 (b), first part: one fp32 training step (the model's own
-    recipe, ``make_loss_fn``) from the family's seeded TrainState, TF32 off,
-    batch 2 at 128x128 of the held-out pool's training split, on the card
-    against the same step on the CPU, to phase 10 (a)'s limits."""
+    """Phase 15 (b), first part: :func:`step_card_vs_cpu` from the family's
+    seeded TrainState."""
+    from videoframeinterpolation_tpu_torch.train import read_flax_state
+
+    step_card_vs_cpu(family_config(name, compute_dtype="float32"), read_flax_state(ckpt), name)
+
+
+def step_card_vs_cpu(cfg32, tree, name: str) -> dict:
+    """One fp32 training step (the model's own recipe, ``make_loss_fn``) of
+    ``cfg32``'s model from the TrainState ``tree``, TF32 off, batch 2 at
+    128x128 of the held-out pool's training split, on the card against the
+    same step on the CPU, to phase 10 (a)'s limits. Returns the card's
+    sampler launches (forward, backward and their strided parts)."""
     from videoframeinterpolation_tpu_torch.models import create_model
     from videoframeinterpolation_tpu_torch.tools.eval_best import build_pool
     from videoframeinterpolation_tpu_torch.train import (
-        create_train_state, make_loss_fn, read_flax_state, state_from_flax, state_to_flax)
+        create_train_state, make_loss_fn, state_from_flax, state_to_flax)
 
-    cfg32 = family_config(name, compute_dtype="float32")
-    tree = read_flax_state(ckpt)
     batch_np = build_pool(2, (128, 128), 42, is_train=True)
+    launches = {}
     step = {}
     for device in ("cuda", "cpu"):
         torch.set_num_threads((os.cpu_count() or 1) if device == "cpu" else 1)
         state = create_train_state(create_model(cfg32, torch.float32).to(device), cfg32)
         state_from_flax(tree, state)
         batch = {k: torch.from_numpy(v).to(device) for k, v in batch_np.items()}
+        reset_sampler_counts()
         start = time.perf_counter()
         total, _ = make_loss_fn(state.model, cfg32)(batch)
         total.backward()
@@ -2150,6 +2299,7 @@ def family_step_card_vs_cpu(ckpt: Path, name: str) -> None:
             torch.cuda.synchronize()
             if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
                 raise AssertionError("TF32 is on: the fp32 step would not compute fp32")
+            launches = sampler_counts()
         step[device] = {"loss": total.item(), "grads": grads,
                         "tree": _leaves(state_to_flax(state)),
                         "seconds": time.perf_counter() - start}
@@ -2163,14 +2313,15 @@ def family_step_card_vs_cpu(ckpt: Path, name: str) -> None:
     state_err = {part: float(max(np.abs(on_card["tree"][k] - v).max()
                                  for k, v in cpu["tree"].items() if k.startswith(part)))
                  for part in ("params/", "opt_state/0/mu/", "opt_state/0/nu/")}
-    emit({"family": name, "train_step_fp32_card_vs_cpu": {
+    emit({"model": name, "train_step_fp32_card_vs_cpu": {
         "loss_card": on_card["loss"], "loss_cpu": cpu["loss"], "loss_rel_err": loss_err,
-        "grad_rel_l2_err": grad_err, "state_max_abs_err": state_err,
+        "grad_rel_l2_err": grad_err, "state_max_abs_err": state_err, "launches": launches,
         "card_seconds": on_card["seconds"], "cpu_seconds": cpu["seconds"]}})
     if not (loss_err <= STEP_LOSS_REL_TOL and grad_err <= STEP_GRAD_TOL
             and max(state_err.values()) <= STEP_STATE_TOL):
         raise AssertionError(f"{name}: fp32 step, card vs CPU: loss {loss_err}, gradients "
                              f"{grad_err}, state {state_err}")
+    return launches
 
 
 def _write_forward_flows(args):
@@ -2326,6 +2477,278 @@ def family_head_to_head(tmp: Path, card: str, path_launches: dict) -> None:
             or deformable_sample.launches or deformable_sample.backward_launches):
         raise AssertionError(f"head_to_head on the variant: tag {out['tag']}, records {records}, "
                              f"sampler launches {deformable_sample.launches}")
+
+
+def check_variants(tmp: Path, gen, card: str, path_launches: dict, scenes: dict,
+                   student_synthetic: dict) -> dict:
+    """Phase 16 (see the module docstring). Returns the strided level shapes
+    it held (forward and backward, for phase 13), its worst errors and the
+    launches of the stride arm's paths."""
+    out = check_strided_sampler(gen)
+    trees = {}
+    for name in VARIANTS:
+        trees[name] = serve_variant(tmp, name, card, path_launches)
+    check_window_and_ref_units(tmp, card, path_launches, scenes, student_synthetic)
+    out["train"] = train_variants(tmp, card, path_launches, trees["stride_arm"])
+    out["serve_strided_launches"] = path_launches["variants_serve_stride_arm_strided"]
+    return out
+
+
+def check_strided_sampler(gen) -> dict:
+    """Phase 16 (a): the sampler and its backward on the query grid of
+    stride 2 at ``STRIDED_CASES``, held as phases 2 and 13 hold theirs (the
+    forward exact in fp32 and 0 bf16 ulps from the fp32 sampling rounded
+    once, at every vector and index width; the backward to phase 2's limits
+    on its planned path and the global path forced, its coordinate
+    gradients equal over two launches). Phase 5 times them."""
+    from videoframeinterpolation_tpu_torch.tools.perf import sampler_probe
+
+    reached, reached_bwd, worst, bwd_err = set(), set(), 0.0, (0.0, 0.0)
+    for name, (B2, h, w, C, G, S, scale, flow_mag) in STRIDED_CASES.items():
+        inputs = sampler_probe.level_inputs(gen, B2, h, w, C, G, S, scale, flow_mag, stride=2)
+        worst = max(worst, check_sampler_case(f"strided_{name}", *inputs, 0, reached, 2))
+        del inputs
+        errs = check_backward_case(gen, f"strided_{name}", STRIDED_CASES[name], reached_bwd, 2)
+        bwd_err = (max(bwd_err[0], errs[0]), max(bwd_err[1], errs[1]))
+    need = ({("torch.float32", v, b) for v in (16, 8, 4) for b in (32, 64)}
+            | {("torch.bfloat16", v, b) for v in (16, 8, 4, 2) for b in (32, 64)})
+    need_bwd = {(path, dt, v, b) for path in ("smem", "global") for b in (32, 64)
+                for dt, widths in (("torch.float32", (16, 8, 4)),
+                                   ("torch.bfloat16", (16, 8, 4, 2))) for v in widths}
+    if need - reached or need_bwd - reached_bwd:
+        raise AssertionError(f"strided instances never run: {sorted(need - reached, key=str)}, "
+                             f"backward {sorted(need_bwd - reached_bwd, key=str)}")
+    emit({"strided_sampler_checked": {"forward_instances": len(need),
+                                      "backward_instances": len(need_bwd),
+                                      "max_abs_err": worst, "backward_fp32_max_abs_err": bwd_err[0],
+                                      "backward_fp32_err_over_max_abs": bwd_err[1]}})
+    torch.cuda.empty_cache()
+    shapes = {(B2, h, w, C, G, S, 2) for B2, h, w, C, G, S, *_ in STRIDED_CASES.values()}
+    return {"forward_held": shapes, "backward_held": shapes, "max_abs_err": worst,
+            "backward_err": bwd_err}
+
+
+def variant_config(name: str, **overrides):
+    """Arm ``name``'s config: ``configs/DAT_fast.yaml`` with the arm's fields."""
+    from videoframeinterpolation_tpu_torch.config import Config
+
+    return Config.from_yaml(ROOT / "configs" / "DAT_fast.yaml", **VARIANTS[name], **overrides)
+
+
+def scene_inputs():
+    """``FAMILY_SCENE``'s frames (uint8), its true middle frame, and the
+    fp32 model inputs of the pair at t = 0.5 on the CPU."""
+    from videoframeinterpolation_tpu_torch.tools import fixtures
+
+    f0, mid, f1 = fixtures.triplet(*FAMILY_SCENE)
+    x0, x1 = (torch.from_numpy(f.astype(np.float32) / 255.0)[None] for f in (f0, f1))
+    return f0, mid, f1, x0, x1, torch.full((1, 1, 1, 1), 0.5)
+
+
+def hold_fp32_frame(model32, name: str, reference: tuple, card: str, model=None) -> None:
+    """The fp32 frame of ``model32`` on ``FAMILY_SCENE`` against the JAX
+    package's CPU read ``reference`` (PSNR against the true middle frame,
+    the frame's mean), within 0.005 dB and 1e-4; ms per frame of it and of
+    ``model`` (the bf16 one), if given."""
+    from videoframeinterpolation_tpu_torch.tools.perf import timing
+
+    _, mid, _, x0, x1, t5 = scene_inputs()
+    xs = (x0.cuda(), x1.cuda(), t5.cuda())
+    torch.set_num_threads(1)
+    with torch.inference_mode():
+        frame = model32(*xs)[0].cpu().numpy()
+        ms = {f"ms_per_frame_448x256_{k}": timing.loop_ms(lambda: m(*xs), 20, warmup=5) / 20
+              for k, m in (("bf16", model), ("fp32", model32)) if m is not None}
+    read = {"psnr": frame_psnr(frame, mid), "mean": float(frame.mean(dtype=np.float64))}
+    ref_psnr, ref_mean = reference
+    emit({"model": name, "fp32_frame": read, "jax_cpu_fp32": {"psnr": ref_psnr, "mean": ref_mean},
+          "psnr_minus_jax_cpu": read["psnr"] - ref_psnr, "mean_minus_jax_cpu": read["mean"] - ref_mean,
+          **ms, "card": card})
+    if not (abs(read["psnr"] - ref_psnr) <= EVAL_PSNR_TOL
+            and abs(read["mean"] - ref_mean) <= FAMILY_MEAN_TOL):
+        raise AssertionError(f"{name}: fp32 frame {read} against JAX's CPU read "
+                             f"{(ref_psnr, ref_mean)}")
+
+
+def serve_requests_counted(model, name: str, launches: int, strided: int = 0) -> list:
+    """Four requests on ``FAMILY_SCENE`` through ``interp_pair`` in bf16,
+    each with exactly ``launches`` bf16 sampler launches, ``strided`` of
+    them on a strided grid, and no backward launch."""
+    from videoframeinterpolation_tpu_torch.interpolate import interp_pair
+
+    f0, mid, f1, *_ = scene_inputs()
+    served = []
+    for t in (0.5, 0.25, 0.5, 0.75):
+        reset_sampler_counts()
+        start = time.perf_counter()
+        pred = interp_pair(model, f0, f1, t)
+        torch.cuda.synchronize()
+        counts = sampler_counts()
+        served.append({"t": t, "host_ms": round((time.perf_counter() - start) * 1e3, 3),
+                       "psnr_vs_mid": round(psnr(pred, mid), 3), "launches": counts["forward"],
+                       "strided_launches": counts["strided_forward"]})
+        if pred.shape != mid.shape or pred.dtype != np.uint8:
+            raise AssertionError(f"{name}: got {pred.dtype} {pred.shape}")
+        got = tuple(counts[k] for k in ("forward", "bf16_forward", "strided_forward", "backward"))
+        if got != (launches, launches, strided, 0):
+            raise AssertionError(f"{name} request: launches {counts}; expected {launches} in "
+                                 f"bf16, {strided} strided, no backward")
+    return served
+
+
+def serve_variant(tmp: Path, name: str, card: str, path_launches: dict):
+    """Phase 16 (b) for one arm: :func:`serve_seeded` of its TrainState
+    drawn from ``VARIANT_SEED``, its config written as a YAML, 3 launches per
+    request (lv1's strided for the stride arm), against ``JAX_VARIANTS``.
+    Returns the TrainState's flax tree."""
+    from videoframeinterpolation_tpu_torch.train import state_to_flax
+
+    cfg = variant_config(name)
+    tree = state_to_flax(seeded_state(cfg, VARIANT_SEED))
+    yaml = tmp / f"{name}.yaml"
+    cfg.save_yaml(yaml)
+    serve_seeded(name, yaml, tree, tmp / f"{name}.ckpt", card, path_launches,
+                 f"variants_serve_{name}", JAX_VARIANTS[name], launches=3,
+                 strided=int(cfg.dat_attn_stride[2] > 1))
+    return tree
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms only, for two runs to be held equal
+    bit for bit: by default cuDNN picks an algorithm per call, and two fp32
+    evaluations of one checkpoint in one process can differ in the last
+    bits (1e-7 dB over 64 scenes, NVIDIA H100 80GB HBM3)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def check_window_and_ref_units(tmp: Path, card: str, path_launches: dict, scenes: dict,
+                               student_synthetic: dict) -> None:
+    """Phase 16 (c): ``evaluate --benchmark synthetic --ssim`` on the shipped
+    student with and without ``--window_sampling``, on phase 11's scenes,
+    the two scores equal bit for bit (the same kernel; both runs with
+    cuDNN's deterministic algorithms) and each within 0.005 dB and 5e-5
+    SSIM of phase 11's; ``interpolate`` on a 448x256 PNG pair with and
+    without the flag, the frames equal byte for byte; the committed ``DAT``
+    checkpoint served with ``dat_ref_offset_units`` (four requests, 3
+    launches each), card against CPU, and its fp32 frame against the JAX
+    package's CPU read with the same flag."""
+    from videoframeinterpolation_tpu_torch import evaluate, interpolate
+    from videoframeinterpolation_tpu_torch.config import PRESETS
+    from videoframeinterpolation_tpu_torch.data import encode_png
+
+    scores, launches = {}, {}
+    with cached_scenes(scenes), cudnn_deterministic():
+        for flag in ((), ("--window_sampling",)):
+            reset_sampler_counts()
+            scores[flag] = evaluate.main(["--config", "DAT_fast", "--benchmark", "synthetic",
+                                          "--ssim", *flag, "--device", "cuda"])
+            torch.cuda.synchronize()
+            launches[flag] = (sampler_counts()["forward"], sampler_counts()["bf16_forward"])
+    flagged = scores[("--window_sampling",)]
+    path_launches["variants_evaluate_window_sampling"] = launches[("--window_sampling",)][0]
+    diffs = {k: flagged[k] - v for k, v in student_synthetic.items()}
+    emit({"evaluate_window_sampling": flagged, "unflagged": scores[()],
+          "equal_to_unflagged": flagged == scores[()], "phase_11": student_synthetic,
+          "minus_phase_11": diffs, "launches": launches[("--window_sampling",)][0]})
+    if (flagged != scores[()] or set(launches.values()) != {(48, 0)}
+            or abs(diffs["val/synthetic_psnr"]) > EVAL_PSNR_TOL
+            or abs(diffs["val/synthetic_ssim"]) > EVAL_SSIM_TOL):
+        raise AssertionError(f"evaluate --window_sampling: {flagged} against {scores[()]} "
+                             f"unflagged and phase 11's {student_synthetic}, launches "
+                             f"{launches}; expected equal and 48 fp32 launches each")
+
+    f0, _, f1, x0, x1, t5 = scene_inputs()
+    for n, img in (("f0.png", f0), ("f1.png", f1)):
+        (tmp / n).write_bytes(encode_png(img))
+    outs = {}
+    with cudnn_deterministic():
+        for flag in ((), ("--window_sampling",)):
+            out = tmp / f"mid{len(outs)}.png"
+            reset_sampler_counts()
+            interpolate.main(["--frame0", str(tmp / "f0.png"), "--frame1", str(tmp / "f1.png"),
+                              "--out", str(out), *flag, "--device", "cuda"])
+            torch.cuda.synchronize()
+            outs[flag] = (out.read_bytes(), sampler_counts()["bf16_forward"])
+    path_launches["variants_interpolate_window_sampling"] = outs[("--window_sampling",)][1]
+    same = outs[()][0] == outs[("--window_sampling",)][0]
+    emit({"interpolate_window_sampling": {"equal_to_unflagged": same,
+                                          "bf16_launches": [v[1] for v in outs.values()]}})
+    if not same or [v[1] for v in outs.values()] != [3, 3]:
+        raise AssertionError(f"interpolate --window_sampling: equal {same}, launches "
+                             f"{[v[1] for v in outs.values()]}")
+
+    from videoframeinterpolation_tpu_torch.interpolate import load_model
+
+    cfg, ckpt = PRESETS["DAT"]
+    cfg = dataclasses.replace(cfg, dat_ref_offset_units=True)
+    model = load_model(cfg, ckpt, device="cuda")
+    served = serve_requests_counted(model, "DAT_ref_offset_units", 3)
+    path_launches["variants_serve_ref_offset_units"] = 3 * len(served)
+    emit({"model": "DAT_ref_offset_units", "checkpoint": str(ckpt.relative_to(ROOT)),
+          "requests": served})
+    model32 = card_vs_cpu(cfg, ckpt, model, x0, x1, t5)
+    hold_fp32_frame(model32, "DAT_ref_offset_units", JAX_VARIANTS["DAT_ref_offset_units"], card)
+    del model, model32
+    torch.cuda.empty_cache()
+
+
+def train_variants(tmp: Path, card: str, path_launches: dict, stride_tree) -> dict:
+    """Phase 16 (d): one fp32 step of the stride arm from its seeded state,
+    card against CPU to phase 10 (a)'s limits (3 forward and 3 backward
+    launches, lv1's strided); ``tools/head_to_head.py`` on each arm for 20
+    steps on a 64-scene pool (``VARIANT_H2H``): its records under JAX's tag,
+    the record's n_params, ms per step, peak memory, and per step 3 bf16
+    forward and 3 backward launches (the stride arm's lv1 strided both
+    ways), 12 fp32 launches per held-out evaluation. Returns the launches
+    of the stride arm's run."""
+    from videoframeinterpolation_tpu_torch.tools import head_to_head
+
+    launches = step_card_vs_cpu(variant_config("stride_arm", compute_dtype="float32"),
+                                stride_tree, "stride_arm")
+    path_launches["variants_train_step_fp32"] = launches["forward"]
+    path_launches["variants_train_step_fp32_backward"] = launches["backward"]
+    if [launches[k] for k in ("forward", "strided_forward", "backward", "strided_backward")] \
+            != [3, 1, 3, 1]:
+        raise AssertionError(f"stride arm's fp32 step: launches {launches}; expected 3 forward "
+                             "and 3 backward, one of each strided")
+    runs = {}
+    for name, (flags, tag, n_params) in VARIANT_H2H_ARMS.items():
+        reset_sampler_counts()
+        out = head_to_head.main(VARIANT_H2H + flags + ["--out_dir", str(tmp / "h2h"),
+                                                       "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = sampler_counts()
+        records = out["records"]
+        steps = out["state"].step
+        strided = int(name == "stride_arm")
+        expect = {"bf16_forward": 3 * steps, "fp32_forward": 2 * 12, "backward": 3 * steps,
+                  "backward_smem": 3 * steps, "strided_forward": strided * (steps + 2 * 4),
+                  "strided_backward": strided * steps}
+        got = {"bf16_forward": counts["bf16_forward"],
+               "fp32_forward": counts["forward"] - counts["bf16_forward"],
+               "backward": counts["backward"], "backward_smem": counts["backward_by_path"]["smem"],
+               "strided_forward": counts["strided_forward"],
+               "strided_backward": counts["strided_backward"]}
+        path_launches[f"variants_head_to_head_{name}"] = counts["forward"]
+        path_launches[f"variants_head_to_head_{name}_backward"] = counts["backward"]
+        runs[name] = counts
+        emit({"variant_head_to_head": {
+            "arm": name, "tag": out["tag"], "events": [r["event"] for r in records],
+            "final": records[-1], "n_params": records[0].get("n_params"), "steps": steps,
+            "ms_per_step": out["ms_per_step"], "peak_memory_bytes": out["peak_memory_bytes"],
+            "launches": got, "expected": expect, "card": card}})
+        if (out["tag"] != tag or [r["event"] for r in records] != ["start", "eval", "final"]
+                or not (tmp / "h2h" / f"{tag}.jsonl").is_file() or steps != 20
+                or records[0]["n_params"] != n_params or got != expect):
+            raise AssertionError(f"head_to_head on the {name}: tag {out['tag']}, records "
+                                 f"{records}, launches {got} against {expect}")
+    return runs["stride_arm"]
 
 
 def check_row_gather(gen, probe_shapes) -> None:

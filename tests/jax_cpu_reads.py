@@ -1,6 +1,7 @@
 """The JAX package's CPU fp32 reads that ``chip_smoke.py`` holds the card to (a script, not a test).
 
-    JAX_PLATFORMS=cpu python tests/jax_cpu_reads.py [--part synthetic|trees|plan|families|all]
+    JAX_PLATFORMS=cpu python tests/jax_cpu_reads.py \
+        [--part synthetic|trees|plan|families|variants|all]
 
 Prints one JSON line per read, for the constants of ``chip_smoke.py``:
 
@@ -21,7 +22,12 @@ Prints one JSON line per read, for the constants of ``chip_smoke.py``:
     ``chip_smoke.FAMILY_SCENE``, with the parameters
     ``chip_smoke.seeded_family_state`` draws, written by the port's
     checkpoint writer and read by flax: its PSNR against the scene's true
-    middle frame and its mean (``JAX_FAMILIES``).
+    middle frame and its mean (``JAX_FAMILIES``);
+  * ``variants``: the same read (``JAX_VARIANTS``) of the quality study's
+    two arms of the flagship (``chip_smoke.VARIANTS`` on
+    ``configs/DAT_fast.yaml``, the parameters ``chip_smoke.seeded_state``
+    draws from ``chip_smoke.VARIANT_SEED``), and of the committed ``DAT``
+    checkpoint with ``dat_ref_offset_units``.
 
 The 256x448 reads take about a minute per batch of 4 on an 8-core host,
 most of it in ``ssim_3d``; the non-shared ``DAT`` needs about 18 GiB.
@@ -141,14 +147,40 @@ def families() -> None:
               "seconds": time.perf_counter() - start})
 
 
+def variants() -> None:
+    from videoframeinterpolation_tpu_torch.train import state_to_flax, write_flax_state
+
+    x0, mid, x1 = fixtures.triplet(*chip_smoke.FAMILY_SCENE)
+    x0, x1 = (jnp.asarray(f.astype("float32")[None] / 255.0) for f in (x0, x1))
+    t = jnp.full((1, 1, 1, 1), 0.5, jnp.float32)
+    reads = {}
+    for name, fields in chip_smoke.VARIANTS.items():
+        state = chip_smoke.seeded_state(chip_smoke.variant_config(name), chip_smoke.VARIANT_SEED)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "variant.ckpt"
+            write_flax_state(path, state_to_flax(state))
+            params = fser.msgpack_restore(path.read_bytes())["params"]
+        reads[name] = (create_model(Config.from_yaml(ROOT / "configs" / "DAT_fast.yaml",
+                                                     compute_dtype="float32", **fields)), params)
+    dat = create_model(Config.from_yaml(ROOT / YAMLS["DAT"][0], compute_dtype="float32",
+                                        dat_ref_offset_units=True))
+    reads["DAT_ref_offset_units"] = (dat, model_and_params("DAT")[1])
+    for name, (model, params) in reads.items():
+        start = time.perf_counter()
+        frame = np.asarray(jax.jit(model.apply)(params, x0, x1, t))[0]
+        emit({"variant": name, "psnr": chip_smoke.frame_psnr(frame, mid),
+              "mean": float(frame.mean(dtype=np.float64)),
+              "seconds": time.perf_counter() - start})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--part", choices=["synthetic", "trees", "plan", "families", "all"],
-                    default="all")
+    ap.add_argument("--part", choices=["synthetic", "trees", "plan", "families", "variants",
+                                       "all"], default="all")
     part = ap.parse_args().part
     jax.config.update("jax_platforms", "cpu")
     for name, fn in (("plan", plan), ("trees", trees), ("families", families),
-                     ("synthetic", synthetic)):
+                     ("variants", variants), ("synthetic", synthetic)):
         if part in (name, "all"):
             fn()
 

@@ -153,8 +153,10 @@ def test_evaluate_cli_routes_synthetic_and_refuses_what_is_not_ported(monkeypatc
     run = tmp_path / "exps" / "x" / "checkpoints"
     assert [(c.seed, c.compute_dtype, p) for c, p in loaded] == [
         (5, "float32", run / "best_ucf101.ckpt"), (5, "float32", run / "latest.ckpt")]
-    with pytest.raises(SystemExit, match="queue 1 item 7"):
-        evaluate.main(["--window_sampling", "--device", "cpu"])
+    # --window_sampling sets the config's flag, as the JAX CLI does.
+    evaluate.main(["--exp_name", "x", "--window_sampling", "--benchmark", "synthetic",
+                   "--device", "cpu"])
+    assert [c.window_sampling for c, _ in loaded] == [False, False, True]
 
 
 def test_cli_pair_mode_on_png_matches_the_jax_cli(tiny, tmp_path, monkeypatch):

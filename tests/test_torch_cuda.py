@@ -26,7 +26,11 @@ student's and the teacher's training levels and at the edge cases, with
 (they are summed without atomics; ``grad_feat``, summed with atomics, is
 held to the tolerance only), the refusal of a plan that does not fit the
 call with no launch counted, and a forward and backward through
-``DeformableSample`` captured in a CUDA graph.
+``DeformableSample`` captured in a CUDA graph; and the sampler and its
+backward on a query grid of stride 2 (the ``attn_stride`` variant's level
+1) at its served and training shapes, at a non-shared shape and with taps
+past every border, held as above, with the refusal of a stride that does
+not divide the features.
 
 These tests need an NVIDIA card with nvcc (the kernels have no CPU mode) and
 skip without one. On the card's machine, which has no JAX, run them without
@@ -422,7 +426,7 @@ def test_the_backward_runs_under_cuda_graph_capture(gen):
     def step():
         for x in leaves:
             x.grad = None
-        DeformableSample.apply(*leaves, 1).backward(grad_out)
+        DeformableSample.apply(*leaves, 1, 1).backward(grad_out)
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -434,7 +438,7 @@ def test_the_backward_runs_under_cuda_graph_capture(gen):
         x.grad = None
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        DeformableSample.apply(*leaves, 1).backward(grad_out)
+        DeformableSample.apply(*leaves, 1, 1).backward(grad_out)
     counts = (deformable_sample.launches, deformable_sample.backward_launches)
     graph.replay()
     torch.cuda.synchronize()
@@ -443,3 +447,86 @@ def test_the_backward_runs_under_cuda_graph_capture(gen):
     torch.cuda.synchronize()
     assert torch.equal(leaves[1].grad, eager[1]) and torch.equal(leaves[2].grad, eager[2])
     _check_backward([x.grad for x in leaves], feat, flow, res, grad_out)
+
+
+# The query grid of stride 2 (the attn_stride variant's level 1): (B2, H, W,
+# C, G, S, residual scale, flow magnitude) with (H, W) the feature grid: a
+# 448x256 request (B2 2), a training batch of 8 pairs of 128x128 (B2 16), a
+# non-shared shape (G 8, 9 channels each) and one whose taps fall past every
+# border.
+STRIDED_CASES = {
+    "served_lv1": (2, 128, 224, 72, 1, 16, 8.0, 4.0),
+    "train_lv1": (16, 64, 64, 72, 1, 16, 8.0, 4.0),
+    "non_shared": (2, 16, 24, 72, 8, 4, 8.0, 4.0),
+    "past_borders": (2, 10, 14, 40, 8, 3, 30.0, 20.0),
+}
+
+
+def _strided_case(gen, name, dtype):
+    B2, H, W, C, G, S, scale, flow_mag = STRIDED_CASES[name]
+    feat = torch.randn((B2, H, W, C), generator=gen, device="cuda")
+    flow = torch.randn((B2, H // 2, W // 2, 2), generator=gen, device="cuda") * flow_mag
+    res = scale * torch.tanh(torch.randn((B2, H // 2, W // 2, G, S, 2), generator=gen,
+                                         device="cuda"))
+    grad_out = torch.randn((B2, S, H * W // 4, C), generator=gen, device="cuda")
+    return tuple(x.to(dtype).contiguous() for x in (feat, flow, res, grad_out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(STRIDED_CASES))
+def test_strided_kernel_matches_plain_version(gen, name, dtype):
+    feat, flow, res, _ = _strided_case(gen, name, dtype)
+    before = deformable_sample.launches
+    out = deformable_sample(feat, flow, res, res.shape[3], stride=2)
+    torch.cuda.synchronize()
+    assert deformable_sample.launches == before + 1
+    ref = _grouped_deformable_sample(
+        feat.float(), res.float() + flow.float()[:, :, :, None, None, :], res.shape[3], 2)
+    assert (out.float() - ref.to(feat.dtype).float()).abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("path", ["smem", "global"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(STRIDED_CASES))
+def test_strided_backward_matches_autograd_through_the_plain_version(gen, name, dtype, path):
+    feat, flow, res, grad_out = _strided_case(gen, name, dtype)
+    G = res.shape[3]
+    plan = _backward_plan(*feat.shape, G, res.shape[4], 2)
+    if path == "global":
+        plan = BackwardPlan("global", 0, 0, plan.index_bits)
+    got = _launch_backward(feat, flow, res, grad_out, G, plan=plan, stride=2)
+    again = _launch_backward(feat, flow, res, grad_out, G, plan=plan, stride=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    ref = deformable_sample_backward_plain(feat, flow, res, grad_out, G, 2)
+    for g, r, which in zip(got, ref, ("feat", "flow", "residual")):
+        assert g.dtype == r.dtype and g.shape == r.shape, which
+        if g.dtype == torch.float32:
+            err = (g - r).abs().max().item()
+            assert err <= BWD_FP32_TOL * r.abs().max().item(), (which, err)
+        else:
+            assert _bf16_close(g.float(), r.float()), which
+
+
+def test_autograd_on_a_strided_grid_runs_both_kernels_once(gen):
+    feat, flow, res, grad_out = _strided_case(gen, "train_lv1", torch.bfloat16)
+    leaves = [x.detach().requires_grad_() for x in (feat, flow, res)]
+    before = (deformable_sample.launches, deformable_sample.backward_launches)
+    deformable_sample(*leaves, 1, stride=2).backward(grad_out)
+    torch.cuda.synchronize()
+    assert (deformable_sample.launches, deformable_sample.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_a_stride_that_does_not_divide_the_features_is_refused(gen):
+    feat, flow, res, grad_out = _strided_case(gen, "past_borders", torch.float32)
+    with pytest.raises(ValueError, match="stride"):
+        deformable_sample(feat, flow, res, 8, stride=3)
+    before = (deformable_sample.launches, deformable_sample.backward_launches)
+    odd = feat[:, :9].contiguous()
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _launch(odd, flow, res, 8, stride=2)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        # grad_out of the (4 x 7) query grid the wrapper reckons for 9 x 14.
+        _launch_backward(odd, flow, res, grad_out[:, :, :28].contiguous(), 8, stride=2)
+    assert (deformable_sample.launches, deformable_sample.backward_launches) == before

@@ -273,13 +273,6 @@ def test_cross_deformable_attention_block_matches_jax(shared_offsets, pred_res_f
                     [feat_t, f0, f1, ft0, ft1], seed=21)
 
 
-@pytest.mark.parametrize("option", [{"attn_stride": 2}, {"window_sampling": True},
-                                    {"movement_nf": 8}, {"ref_offset_units": True}])
-def test_unported_block_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        pnn.CrossDeformableAttentionBlock(16, 16, **option)
-
-
 # ---------------------------------------------------------------- params_from_flax
 
 

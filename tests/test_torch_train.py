@@ -297,15 +297,6 @@ def test_entry_point_trains_two_steps_on_the_cpu(tmp_path):
     assert (Path(b) / f"{tag}.ckpt").read_bytes() == ckpt.read_bytes()
 
 
-@pytest.mark.parametrize("flag", [["--attn_stride", "2"],
-                                  ["--movement_nf", "36,36,36"], ["--shared_levels", "2,1"],
-                                  ["--random_t", "0.1,0.9"], ["--host_pool"],
-                                  ["--teacher_nf", "72"], ["--dec_res_blocks", "6"]])
-def test_unported_options_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError):
-        head_to_head.main(TINY_ARGS + flag + ["--out_dir", str(tmp_path)])
-
-
 def test_out_dir_has_no_default():
     with pytest.raises(SystemExit):
         head_to_head.parse_args(TINY_ARGS)

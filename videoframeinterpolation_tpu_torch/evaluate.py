@@ -23,8 +23,10 @@ generator at 256x448 with the config's seed. ``--tile N`` tiles frames
 larger than N pixels with a per-pair, flow-sized overlap
 (:func:`..parallel.spatial.make_flow_aware_tiled`); smaller frames run
 whole. IFRNet cannot be tiled (it returns no flow pyramid to size the
-overlap): ``--tile`` with it fails before the model runs. The JAX CLI's
-``--window_sampling`` is not ported yet and raises.
+overlap): ``--tile`` with it fails before the model runs.
+``--window_sampling`` sets the config's ``window_sampling``, as the JAX
+CLI does; it is the same function with the same parameters, so the port
+runs the same kernel and gives the same scores.
 """
 
 from __future__ import annotations
@@ -83,18 +85,19 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--benchmark", type=str, default="vimeo90k", choices=BENCHMARKS)
     parser.add_argument("--ssim", action="store_true")
     parser.add_argument("--batch_size", type=int, default=4)
-    parser.add_argument("--window_sampling", action="store_true", help="not ported yet")
+    parser.add_argument("--window_sampling", action="store_true",
+                        help="the config's window_sampling: the same function and parameters "
+                             "(any flagship checkpoint works)")
     parser.add_argument("--tile", type=int, default=0,
                         help="spatial tile size for HD frames (0 = off); the overlap is "
                              "sized per pair from the model's own flow estimate")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    if args.window_sampling:
-        raise SystemExit("--window_sampling is not ported yet (ROADMAP.md, queue 1 item 7)")
 
     cfg, ckpt = resolve(args)
     # fp32 evaluation for PSNR parity, whatever the config computes in.
-    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                              window_sampling=cfg.window_sampling or args.window_sampling)
     model = load_model(cfg, ckpt, device=args.device)
     print(f"Number of params: {sum(p.numel() for p in model.parameters())}")
     try:

@@ -44,6 +44,9 @@ the port's trainer writes. IFRNet returns no flow pyramid to size the
 tiles' overlap, so ``--tile`` with it fails before the model runs. (The
 JAX CLI's probe finds no ``pred_ft0`` either; it warns and tiles with a
 guessed 32-px overlap, which may seam where the motion is larger.)
+``--window_sampling`` sets the config's ``window_sampling``, as the JAX
+CLI does: the same function with the same parameters, which the port
+computes with the same kernel, so the frames are the same.
 
 :func:`load_model` serves a config in its ``compute_dtype``, as the JAX
 CLI does: the presets (their YAMLs) in bf16, a config with
@@ -55,6 +58,7 @@ model computes in full fp32 on the card, as on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -265,6 +269,9 @@ def main(argv: list[str] | None = None) -> None:
                              "levels (later levels interpolate generated frames). "
                              "direct: all factor-1 instants from the ORIGINAL pair, "
                              "the t-invariant encoder run once per pair")
+    parser.add_argument("--window_sampling", action="store_true",
+                        help="the config's window_sampling: the same function and parameters "
+                             "(any flagship checkpoint works)")
     parser.add_argument("--tile", type=int, default=0,
                         help="spatial tile size for HD inputs (0 = off)")
     parser.add_argument("--device", default="cuda")
@@ -272,6 +279,8 @@ def main(argv: list[str] | None = None) -> None:
 
     # cheap argument validation before the (slow) model load
     cfg, ckpt = config_and_ckpt(args.config, args.ckpt)
+    if args.window_sampling:
+        cfg = dataclasses.replace(cfg, window_sampling=True)
     if args.in_dir:
         if args.mode == "recursive" and args.factor & (args.factor - 1):
             raise SystemExit("--mode recursive needs a power-of-2 --factor; "

@@ -52,10 +52,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes; every function returns a cudaError_t as int.
 SIGNATURES = {
-    "vfi_deformable_sample_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "vfi_deformable_sample_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "vfi_deformable_sample_bwd_f32": [_P] * 7 + [_I] * 10 + [_P],
-    "vfi_deformable_sample_bwd_bf16": [_P] * 7 + [_I] * 10 + [_P],
+    "vfi_deformable_sample_f32": [_P] * 4 + [_I] * 9 + [_P],
+    "vfi_deformable_sample_bf16": [_P] * 4 + [_I] * 9 + [_P],
+    "vfi_deformable_sample_bwd_f32": [_P] * 7 + [_I] * 11 + [_P],
+    "vfi_deformable_sample_bwd_bf16": [_P] * 7 + [_I] * 11 + [_P],
     "vfi_row_gather_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "vfi_row_gather_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
     "vfi_lane_gather_f32": [_P, _P, _P, _I, _I, _I, _P],

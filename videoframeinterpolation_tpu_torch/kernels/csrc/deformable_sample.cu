@@ -6,12 +6,20 @@
 // per query and resolved the taps with a lane gather, because the TPU pays
 // per gathered row. This one is written from the function instead:
 //
-//   coords  = (qx, qy) + (residual[b, qy, qx, g, s] + flow[b, qy, qx])
+//   coords  = (qx*st + (st-1)/2, qy*st + (st-1)/2)
+//             + (residual[b, qy, qx, g, s] + flow[b, qy, qx])
 //   out[b, s, q, g*Cg + c] = sum over the 4 bilinear taps of
 //                            w_tap * m_tap * feat[b, yi, xi, g*Cg + c]
 //
 // with floor-based taps and a zeros mask per tap (0 <= xi <= W-1,
 // 0 <= yi <= H-1), as in videoframeinterpolation_tpu/ops/interp.py:119-190.
+// The queries (qy, qx) lie on an h x w grid, h = H / st and w = W / st, with
+// a stride st of 1 (every DAT level of the shipped checkpoints) or more (the
+// attn_stride variant's level 1: JAX _grouped_deformable_sample(..., stride),
+// nn/deformable_attn.py:83-128, whose queries sit at the centres of st x st
+// cells and sample the full-resolution features). The query position is
+// exact in fp32 (an integer, or an integer and a half), as JAX forms it; at
+// st = 1 it is (qx, qy) and every result is what it was before the stride.
 // The association follows the JAX model: off = res + flow
 // (nn/deformable_attn.py:256), then base + off (:115). The model casts off to
 // fp32 right after the add, and XLA then takes the add itself in fp32, so for
@@ -25,8 +33,8 @@
 // to bf16, so the two may differ by a few bf16 ulps; the kernel equals the
 // fp32 sampling of its bf16 inputs rounded once.)
 //
-// Layout: feat (B2, H, W, C), flow (B2, H, W, 2), residual (B2, H, W, G, S, 2),
-// out (B2, S, H*W, C), all contiguous; G divides C.
+// Layout: feat (B2, H, W, C), flow (B2, h, w, 2), residual (B2, h, w, G, S, 2),
+// out (B2, S, h*w, C), all contiguous; G divides C, st divides H and W.
 //
 // What bounds it on this card: bytes. The output write of B2*S*H*W*C
 // elements dominates; each output element reads four feature elements, from
@@ -185,40 +193,51 @@ __device__ __forceinline__ void load_chunk(const T* p, unsigned* w) {
   Vec<V>::split(__ldg(reinterpret_cast<const typename Vec<V>::type*>(p)), w);
 }
 
+// A query's position on the feature grid along one axis, as JAX forms it:
+// j * st + (st - 1) / 2 in fp32 (nn/deformable_attn.py:108-114). Both terms
+// and the sum are exact (integers and halves far below 2^23); at st = 1 it
+// is (float)j.
+__device__ __forceinline__ float query_pos(int j, int st) {
+  return __fadd_rn((float)(j * st), 0.5f * (float)(st - 1));
+}
+
 // T: float or __nv_bfloat16; V: bytes per chunk; I: int or long long, wide
 // enough for every element index of the call.
 template <typename T, int V, typename I>
 __global__ void __launch_bounds__(kThreads)
 deformable_sample_kernel(const T* __restrict__ feat, const T* __restrict__ flow,
                          const T* __restrict__ residual, T* __restrict__ out,
-                         int B2, int H, int W, int C, int G, int S) {
+                         int B2, int H, int W, int C, int G, int S, int st) {
   constexpr int kElems = V / (int)sizeof(T);
   constexpr int kWords = (V + 3) / 4;
+  const int h = H / st, w = W / st;              // the query grid
   const I HW = (I)H * W;
+  const I hw = (I)h * w;
   const int chunks = C / kElems;                 // per pixel
   const long long t64 = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t64 >= (long long)B2 * H * W * chunks) return;
+  if (t64 >= (long long)B2 * h * w * chunks) return;
   const I t = (I)t64;
-  const I pix = t / chunks;                      // b * HW + q
+  const I pix = t / chunks;                      // b * hw + q
   const int k = (int)(t - pix * chunks);
-  const I b = pix / HW;
-  const I q = pix - b * HW;
-  const int qy = (int)(q / W);
-  const int qx = (int)(q - (I)qy * W);
+  const I b = pix / hw;
+  const I q = pix - b * hw;
+  const int qy = (int)(q / w);
+  const int qx = (int)(q - (I)qy * w);
   const int g = k / (chunks / G);
+  const float bx = query_pos(qx, st), by = query_pos(qy, st);
 
   const float fx = Elem<T>::load(flow + 2 * pix);
   const float fy = Elem<T>::load(flow + 2 * pix + 1);
   const T* r = residual + (pix * G + g) * S * 2;
   const T* fb = feat + b * HW * C + k * kElems;
-  T* o = out + (b * S * HW + q) * C + k * kElems;
-  const I out_step = HW * C;
+  T* o = out + (b * S * hw + q) * C + k * kElems;
+  const I out_step = hw * C;
   const I row_step = (I)W * C;
 
 #pragma unroll 2
   for (int s = 0; s < S; ++s, o += out_step) {
-    const float x = __fadd_rn((float)qx, __fadd_rn(Elem<T>::load(r + 2 * s), fx));
-    const float y = __fadd_rn((float)qy, __fadd_rn(Elem<T>::load(r + 2 * s + 1), fy));
+    const float x = __fadd_rn(bx, __fadd_rn(Elem<T>::load(r + 2 * s), fx));
+    const float y = __fadd_rn(by, __fadd_rn(Elem<T>::load(r + 2 * s + 1), fy));
     const float x0f = floorf(x);
     const float y0f = floorf(y);
     const float wx = __fsub_rn(x, x0f);
@@ -268,7 +287,7 @@ deformable_sample_kernel(const T* __restrict__ feat, const T* __restrict__ flow,
 
 template <typename T, int V>
 int launch_v(const void* feat, const void* flow, const void* residual, void* out, int B2,
-             int H, int W, int C, int G, int S, int index_bits, unsigned blocks,
+             int H, int W, int C, int G, int S, int st, int index_bits, unsigned blocks,
              cudaStream_t stream) {
   const T* f = static_cast<const T*>(feat);
   const T* fl = static_cast<const T*>(flow);
@@ -276,21 +295,34 @@ int launch_v(const void* feat, const void* flow, const void* residual, void* out
   T* o = static_cast<T*>(out);
   if (index_bits == 32)
     deformable_sample_kernel<T, V, int><<<blocks, kThreads, 0, stream>>>(
-        f, fl, r, o, B2, H, W, C, G, S);
+        f, fl, r, o, B2, H, W, C, G, S, st);
   else
     deformable_sample_kernel<T, V, long long><<<blocks, kThreads, 0, stream>>>(
-        f, fl, r, o, B2, H, W, C, G, S);
+        f, fl, r, o, B2, H, W, C, G, S, st);
   return (int)cudaGetLastError();
 }
 
-// Refuses (cudaErrorInvalidValue, nothing launched) a vector width that does
-// not divide a group's bytes or the alignment of feat and out, and 32-bit
-// indices for a call with an element index of 2^31 or more.
+// The largest element count of the call's tensors: out (B2, S, h*w, C), the
+// residual (B2, h, w, G, S, 2) and, on a strided grid, feat (B2, H, W, C).
+long long largest_tensor(int B2, int H, int W, int C, int G, int S, int st) {
+  const long long queries = (long long)B2 * (H / st) * (W / st);
+  const long long out_elems = queries * S * C;
+  const long long res_elems = queries * G * S * 2;
+  const long long feat_elems = (long long)B2 * H * W * C;
+  const long long most = out_elems > res_elems ? out_elems : res_elems;
+  return most > feat_elems ? most : feat_elems;
+}
+
+// Refuses (cudaErrorInvalidValue, nothing launched) a stride that does not
+// divide H and W, a vector width that does not divide a group's bytes or the
+// alignment of feat and out, and 32-bit indices for a call with an element
+// index of 2^31 or more.
 template <typename T>
 int launch(const void* feat, const void* flow, const void* residual, void* out,
-           int B2, int H, int W, int C, int G, int S, int vec_bytes, int index_bits,
+           int B2, int H, int W, int C, int G, int S, int st, int vec_bytes, int index_bits,
            void* stream) {
-  if (B2 <= 0 || H <= 0 || W <= 0 || C <= 0 || G <= 0 || S <= 0 || C % G != 0)
+  if (B2 <= 0 || H <= 0 || W <= 0 || C <= 0 || G <= 0 || S <= 0 || C % G != 0 || st <= 0 ||
+      H % st != 0 || W % st != 0)
     return (int)cudaErrorInvalidValue;
   const long long esize = (long long)sizeof(T);
   const long long group_bytes = (long long)(C / G) * esize;
@@ -298,30 +330,28 @@ int launch(const void* feat, const void* flow, const void* residual, void* out,
   if (vec_bytes < esize || vec_bytes > 16 || (vec_bytes & (vec_bytes - 1)) != 0 ||
       group_bytes % vec_bytes != 0 || align % (uintptr_t)vec_bytes != 0)
     return (int)cudaErrorInvalidValue;
-  const long long pixels = (long long)B2 * H * W;
-  const long long out_elems = pixels * S * C;
-  const long long res_elems = pixels * G * S * 2;
-  const long long largest = out_elems > res_elems ? out_elems : res_elems;
+  const long long pixels = (long long)B2 * (H / st) * (W / st);   // queries
+  const long long largest = largest_tensor(B2, H, W, C, G, S, st);
   if (!(index_bits == 64 || (index_bits == 32 && largest < (1LL << 31))))
     return (int)cudaErrorInvalidValue;
   const long long threads = pixels * (C * esize / vec_bytes);
   const long long blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
+  const cudaStream_t cs = (cudaStream_t)stream;
   switch (vec_bytes) {
     case 16:
-      return launch_v<T, 16>(feat, flow, residual, out, B2, H, W, C, G, S, index_bits,
-                             (unsigned)blocks, st);
+      return launch_v<T, 16>(feat, flow, residual, out, B2, H, W, C, G, S, st, index_bits,
+                             (unsigned)blocks, cs);
     case 8:
-      return launch_v<T, 8>(feat, flow, residual, out, B2, H, W, C, G, S, index_bits,
-                            (unsigned)blocks, st);
+      return launch_v<T, 8>(feat, flow, residual, out, B2, H, W, C, G, S, st, index_bits,
+                            (unsigned)blocks, cs);
     case 4:
-      return launch_v<T, 4>(feat, flow, residual, out, B2, H, W, C, G, S, index_bits,
-                            (unsigned)blocks, st);
+      return launch_v<T, 4>(feat, flow, residual, out, B2, H, W, C, G, S, st, index_bits,
+                            (unsigned)blocks, cs);
     default:
       if constexpr (sizeof(T) == 2)
-        return launch_v<T, 2>(feat, flow, residual, out, B2, H, W, C, G, S, index_bits,
-                              (unsigned)blocks, st);
+        return launch_v<T, 2>(feat, flow, residual, out, B2, H, W, C, G, S, st, index_bits,
+                              (unsigned)blocks, cs);
       return (int)cudaErrorInvalidValue;
   }
 }
@@ -345,20 +375,21 @@ constexpr int kPathGlobal = 0;
 constexpr int kPathSmem = 1;
 
 // One sample's taps and weights, computed exactly as the forward computes
-// them: the same _rn chain, the same float-based validity tests. x0, y0 are
-// set only when a tap is valid (they are in [-1, W-1] and [-1, H-1] then),
-// so a coordinate that would overflow an int never forms an address.
+// them: the same query position (bx, by), the same _rn chain, the same
+// float-based validity tests. x0, y0 are set only when a tap is valid (they
+// are in [-1, W-1] and [-1, H-1] then), so a coordinate that would overflow
+// an int never forms an address.
 struct Taps {
   float wx, wy, ux, uy, w00, w01, w10, w11;
   bool v00, v01, v10, v11, any;
   int x0, y0;
 };
 
-__device__ __forceinline__ Taps taps_at(int qx, int qy, float rx, float ry, float fx,
+__device__ __forceinline__ Taps taps_at(float bx, float by, float rx, float ry, float fx,
                                         float fy, int H, int W) {
   Taps t;
-  const float x = __fadd_rn((float)qx, __fadd_rn(rx, fx));
-  const float y = __fadd_rn((float)qy, __fadd_rn(ry, fy));
+  const float x = __fadd_rn(bx, __fadd_rn(rx, fx));
+  const float y = __fadd_rn(by, __fadd_rn(ry, fy));
   const float x0f = floorf(x);
   const float y0f = floorf(y);
   t.wx = __fsub_rn(x, x0f);
@@ -395,7 +426,7 @@ deformable_sample_bwd_coord_kernel(const T* __restrict__ feat, const T* __restri
                                    const T* __restrict__ residual,
                                    const T* __restrict__ grad_out,
                                    T* __restrict__ grad_residual, T* __restrict__ grad_flow,
-                                   int B2, int H, int W, int C, int G, int S) {
+                                   int B2, int H, int W, int C, int G, int S, int st) {
   constexpr int kElems = V / (int)sizeof(T);
   constexpr int kWords = (V + 3) / 4;
   __shared__ float2 part[kCoordThreads];        // each thread's chunk sum
@@ -406,24 +437,27 @@ deformable_sample_bwd_coord_kernel(const T* __restrict__ feat, const T* __restri
   const int p = threadIdx.x / chunks;
   const int k = threadIdx.x - p * chunks;
   const int g = k / per_group;
+  const int h = H / st, w = W / st;             // the query grid
   const I HW = (I)H * W;
-  const I pix = (I)blockIdx.x * P + p;          // b * HW + q
-  const bool active = (long long)blockIdx.x * P + p < (long long)B2 * H * W;
+  const I hw = (I)h * w;
+  const I pix = (I)blockIdx.x * P + p;          // b * hw + q
+  const bool active = (long long)blockIdx.x * P + p < (long long)B2 * h * w;
   I b = 0, q = 0;
   int qx = 0, qy = 0;
   float fx = 0.f, fy = 0.f;
   if (active) {
-    b = pix / HW;
-    q = pix - b * HW;
-    qy = (int)(q / W);
-    qx = (int)(q - (I)qy * W);
+    b = pix / hw;
+    q = pix - b * hw;
+    qy = (int)(q / w);
+    qx = (int)(q - (I)qy * w);
     fx = Elem<T>::load(flow + 2 * pix);
     fy = Elem<T>::load(flow + 2 * pix + 1);
   }
+  const float bx = query_pos(qx, st), by = query_pos(qy, st);
   const I r0 = active ? (pix * G + g) * S * 2 : 0;
   const T* fb = feat + b * HW * C + k * kElems;
-  const T* go = grad_out + (b * S * HW + q) * C + k * kElems;
-  const I go_step = HW * C;
+  const T* go = grad_out + (b * S * hw + q) * C + k * kElems;
+  const I go_step = hw * C;
   const I row_step = (I)W * C;
   const bool group_lead = active && k == g * per_group;
   float flow_x = 0.f, flow_y = 0.f;
@@ -431,7 +465,7 @@ deformable_sample_bwd_coord_kernel(const T* __restrict__ feat, const T* __restri
   for (int s = 0; s < S; ++s, go += go_step) {
     float gx = 0.f, gy = 0.f;
     if (active) {
-      const Taps t = taps_at(qx, qy, Elem<T>::load(residual + r0 + 2 * s),
+      const Taps t = taps_at(bx, by, Elem<T>::load(residual + r0 + 2 * s),
                              Elem<T>::load(residual + r0 + 2 * s + 1), fx, fy, H, W);
       if (t.any) {
         const I p00 = ((I)t.y0 * W + t.x0) * C;
@@ -484,23 +518,25 @@ deformable_sample_bwd_coord_kernel(const T* __restrict__ feat, const T* __restri
 }
 
 // grad_feat, shared-memory path. A block owns K channels of one image (the
-// slice lies in one group) and holds their fp32 gradient for every pixel in
-// dynamic shared memory, pixel-major (acc[pixel * K + k]). Its threads
-// stand in rows of K lanes, one lane per channel: each row of lanes takes
-// one (s, q) row of the image at a time, recomputes its taps, reads its
-// channel of g and adds w_tap * g into shared memory, so that the lanes of
-// one row hit K neighbouring words. Then the block writes the slice once,
-// rounded to T, zeros included. Shared-memory indices are 32-bit
-// (HW * K * 4 <= 227 KB); global ones are I.
+// slice lies in one group) and holds their fp32 gradient for every pixel of
+// the feature grid in dynamic shared memory, pixel-major (acc[pixel * K +
+// k]). Its threads stand in rows of K lanes, one lane per channel: each row
+// of lanes takes one (s, q) row of the image at a time (q on the query
+// grid), recomputes its taps, reads its channel of g and adds w_tap * g into
+// shared memory, so that the lanes of one row hit K neighbouring words. Then
+// the block writes the slice once, rounded to T, zeros included.
+// Shared-memory indices are 32-bit (HW * K * 4 <= 227 KB); global ones are I.
 template <typename T, typename I>
 __global__ void __launch_bounds__(kFeatThreads, kFeatMinBlocks)
 deformable_sample_bwd_feat_smem_kernel(const T* __restrict__ flow,
                                         const T* __restrict__ residual,
                                         const T* __restrict__ grad_out,
                                         T* __restrict__ grad_feat, int H, int W, int C, int G,
-                                        int S, int K) {
+                                        int S, int st, int K) {
   extern __shared__ float acc[];
   const int HW = H * W;
+  const int w = W / st;
+  const int hw = (H / st) * w;                  // the query grid
   const int slices = C / K;
   const int b = blockIdx.x / slices;
   const int c0 = (blockIdx.x - b * slices) * K;
@@ -509,20 +545,21 @@ deformable_sample_bwd_feat_smem_kernel(const T* __restrict__ flow,
   __syncthreads();
   const int c = threadIdx.x % K;
   const int step = blockDim.x / K;
-  const T* fl = flow + (I)b * HW * 2;
-  const T* res = residual + ((I)b * HW * G + g) * S * 2;
-  const T* go = grad_out + (I)b * S * HW * C + c0 + c;
-  const int rows = S * HW;
+  const T* fl = flow + (I)b * hw * 2;
+  const T* res = residual + ((I)b * hw * G + g) * S * 2;
+  const T* go = grad_out + (I)b * S * hw * C + c0 + c;
+  const int rows = S * hw;
   for (int row = threadIdx.x / K; row < rows; row += step) {
-    const int s = row / HW;
-    const int q = row - s * HW;
-    const int qy = q / W;
-    const int qx = q - qy * W;
+    const int s = row / hw;
+    const int q = row - s * hw;
+    const int qy = q / w;
+    const int qx = q - qy * w;
     const T* r = res + ((I)q * G * S + s) * 2;
-    const Taps t = taps_at(qx, qy, Elem<T>::load(r), Elem<T>::load(r + 1),
-                           Elem<T>::load(fl + 2 * q), Elem<T>::load(fl + 2 * q + 1), H, W);
+    const Taps t = taps_at(query_pos(qx, st), query_pos(qy, st), Elem<T>::load(r),
+                           Elem<T>::load(r + 1), Elem<T>::load(fl + 2 * q),
+                           Elem<T>::load(fl + 2 * q + 1), H, W);
     if (!t.any) continue;
-    const float gv = Elem<T>::load(go + ((I)s * HW + q) * C);
+    const float gv = Elem<T>::load(go + ((I)s * hw + q) * C);
     float* a = acc + (t.y0 * W + t.x0) * K + c;
     if (t.v00) atomicAdd(a, t.w00 * gv);
     if (t.v01) atomicAdd(a + K, t.w01 * gv);
@@ -538,35 +575,38 @@ deformable_sample_bwd_feat_smem_kernel(const T* __restrict__ flow,
 }
 
 // grad_feat, global path, for images whose one-channel slice does not leave
-// room for two blocks per SM: one thread per (b, s, q, g), q fastest, loops
-// over the group's channels and adds w_tap * g into an fp32 buffer, zeroed
-// by the caller, with global atomics.
+// room for two blocks per SM: one thread per (b, s, q, g), q (on the query
+// grid) fastest, loops over the group's channels and adds w_tap * g into an
+// fp32 buffer of the feature grid, zeroed by the caller, with global atomics.
 template <typename T, int V, typename I>
 __global__ void __launch_bounds__(kThreads)
 deformable_sample_bwd_feat_global_kernel(const T* __restrict__ flow,
                                          const T* __restrict__ residual,
                                          const T* __restrict__ grad_out,
                                          float* __restrict__ grad_feat, int B2, int H, int W,
-                                         int C, int G, int S) {
+                                         int C, int G, int S, int st) {
   constexpr int kElems = V / (int)sizeof(T);
   constexpr int kWords = (V + 3) / 4;
+  const int h = H / st, w = W / st;              // the query grid
   const I HW = (I)H * W;
+  const I hw = (I)h * w;
   const int Cg = C / G;
   const long long t64 = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t64 >= (long long)B2 * S * H * W * G) return;
+  if (t64 >= (long long)B2 * S * h * w * G) return;
   const I t = (I)t64;
-  const I row = t / G;                           // (b * S + s) * HW + q
+  const I row = t / G;                           // (b * S + s) * hw + q
   const int g = (int)(t - row * G);
-  const I bs = row / HW;
-  const I q = row - bs * HW;
+  const I bs = row / hw;
+  const I q = row - bs * hw;
   const I b = bs / S;
   const int s = (int)(bs - b * S);
-  const int qy = (int)(q / W);
-  const int qx = (int)(q - (I)qy * W);
-  const I pix = b * HW + q;
+  const int qy = (int)(q / w);
+  const int qx = (int)(q - (I)qy * w);
+  const I pix = b * hw + q;
   const I r = ((pix * G + g) * S + s) * 2;
-  const Taps tp = taps_at(qx, qy, Elem<T>::load(residual + r), Elem<T>::load(residual + r + 1),
-                          Elem<T>::load(flow + 2 * pix), Elem<T>::load(flow + 2 * pix + 1), H, W);
+  const Taps tp = taps_at(query_pos(qx, st), query_pos(qy, st), Elem<T>::load(residual + r),
+                          Elem<T>::load(residual + r + 1), Elem<T>::load(flow + 2 * pix),
+                          Elem<T>::load(flow + 2 * pix + 1), H, W);
   if (!tp.any) return;
   const I p00 = ((I)tp.y0 * W + tp.x0) * C + (I)g * Cg;
   const I row_step = (I)W * C;
@@ -655,42 +695,42 @@ int allow_feat_smem() {
 template <typename T, typename I>
 int launch_bwd_i(const T* feat, const T* flow, const T* residual, const T* grad_out,
                  void* grad_feat, T* grad_residual, T* grad_flow, int B2, int H, int W, int C,
-                 int G, int S, int vec_bytes, int path, int K, unsigned coord_blocks,
-                 int coord_threads, unsigned feat_blocks, int smem, cudaStream_t st) {
+                 int G, int S, int st, int vec_bytes, int path, int K, unsigned coord_blocks,
+                 int coord_threads, unsigned feat_blocks, int smem, cudaStream_t cs) {
   if (path == kPathSmem) {
     const int err = allow_feat_smem<T, I>();
     if (err != 0) return err;
   }
   const SideStream& side = side_stream();
   if (side.err != cudaSuccess) return (int)side.err;
-  int err = (int)cudaEventRecord(side.fork, st);
+  int err = (int)cudaEventRecord(side.fork, cs);
   if (err == 0) err = (int)cudaStreamWaitEvent(side.stream, side.fork, 0);
   if (err != 0) return err;
   if (path == kPathSmem) {
     deformable_sample_bwd_feat_smem_kernel<T, I><<<feat_blocks, (kFeatThreads / K) * K, smem,
                                                    side.stream>>>(
-        flow, residual, grad_out, static_cast<T*>(grad_feat), H, W, C, G, S, K);
+        flow, residual, grad_out, static_cast<T*>(grad_feat), H, W, C, G, S, st, K);
     err = (int)cudaGetLastError();
   } else {
     err = with_vector<T>(vec_bytes, [&](auto v) {
       constexpr int V = decltype(v)::value;
       deformable_sample_bwd_feat_global_kernel<T, V, I><<<feat_blocks, kThreads, 0,
                                                           side.stream>>>(
-          flow, residual, grad_out, static_cast<float*>(grad_feat), B2, H, W, C, G, S);
+          flow, residual, grad_out, static_cast<float*>(grad_feat), B2, H, W, C, G, S, st);
       return (int)cudaGetLastError();
     });
   }
   if (err == 0)
     err = with_vector<T>(vec_bytes, [&](auto v) {
       constexpr int V = decltype(v)::value;
-      deformable_sample_bwd_coord_kernel<T, V, I><<<coord_blocks, coord_threads, 0, st>>>(
-          feat, flow, residual, grad_out, grad_residual, grad_flow, B2, H, W, C, G, S);
+      deformable_sample_bwd_coord_kernel<T, V, I><<<coord_blocks, coord_threads, 0, cs>>>(
+          feat, flow, residual, grad_out, grad_residual, grad_flow, B2, H, W, C, G, S, st);
       return (int)cudaGetLastError();
     });
   // Join even after a failed launch, so that the caller's stream never
   // leaves the side stream behind (a capture would otherwise end unjoined).
   const int joined = (int)cudaEventRecord(side.join, side.stream);
-  const int waited = joined == 0 ? (int)cudaStreamWaitEvent(st, side.join, 0) : joined;
+  const int waited = joined == 0 ? (int)cudaStreamWaitEvent(cs, side.join, 0) : joined;
   return err != 0 ? err : waited;
 }
 
@@ -702,9 +742,10 @@ int launch_bwd_i(const T* feat, const T* flow, const T* residual, const T* grad_
 template <typename T>
 int launch_bwd(const void* feat, const void* flow, const void* residual, const void* grad_out,
                void* grad_feat, void* grad_residual, void* grad_flow, int B2, int H, int W,
-               int C, int G, int S, int vec_bytes, int index_bits, int path, int K,
+               int C, int G, int S, int st, int vec_bytes, int index_bits, int path, int K,
                void* stream) {
-  if (B2 <= 0 || H <= 0 || W <= 0 || C <= 0 || G <= 0 || S <= 0 || C % G != 0)
+  if (B2 <= 0 || H <= 0 || W <= 0 || C <= 0 || G <= 0 || S <= 0 || C % G != 0 || st <= 0 ||
+      H % st != 0 || W % st != 0)
     return (int)cudaErrorInvalidValue;
   const long long esize = (long long)sizeof(T);
   const long long group_bytes = (long long)(C / G) * esize;
@@ -712,10 +753,8 @@ int launch_bwd(const void* feat, const void* flow, const void* residual, const v
   if (vec_bytes < esize || vec_bytes > 16 || (vec_bytes & (vec_bytes - 1)) != 0 ||
       group_bytes % vec_bytes != 0 || align % (uintptr_t)vec_bytes != 0)
     return (int)cudaErrorInvalidValue;
-  const long long pixels = (long long)B2 * H * W;
-  const long long out_elems = pixels * S * C;
-  const long long res_elems = pixels * G * S * 2;
-  const long long largest = out_elems > res_elems ? out_elems : res_elems;
+  const long long pixels = (long long)B2 * (H / st) * (W / st);   // queries
+  const long long largest = largest_tensor(B2, H, W, C, G, S, st);
   if (!(index_bits == 64 || (index_bits == 32 && largest < (1LL << 31))))
     return (int)cudaErrorInvalidValue;
   const long long chunks = C * esize / vec_bytes;
@@ -740,56 +779,59 @@ int launch_bwd(const void* feat, const void* flow, const void* residual, const v
   const T* go = static_cast<const T*>(grad_out);
   T* gr = static_cast<T*>(grad_residual);
   T* gfl = static_cast<T*>(grad_flow);
-  const cudaStream_t st = (cudaStream_t)stream;
+  const cudaStream_t cs = (cudaStream_t)stream;
   if (index_bits == 32)
-    return launch_bwd_i<T, int>(f, fl, r, go, grad_feat, gr, gfl, B2, H, W, C, G, S, vec_bytes,
-                                path, K, (unsigned)coord_blocks, per_block * (int)chunks,
-                                (unsigned)feat_blocks, (int)smem, st);
-  return launch_bwd_i<T, long long>(f, fl, r, go, grad_feat, gr, gfl, B2, H, W, C, G, S,
+    return launch_bwd_i<T, int>(f, fl, r, go, grad_feat, gr, gfl, B2, H, W, C, G, S, st,
+                                vec_bytes, path, K, (unsigned)coord_blocks,
+                                per_block * (int)chunks, (unsigned)feat_blocks, (int)smem, cs);
+  return launch_bwd_i<T, long long>(f, fl, r, go, grad_feat, gr, gfl, B2, H, W, C, G, S, st,
                                     vec_bytes, path, K, (unsigned)coord_blocks,
                                     per_block * (int)chunks, (unsigned)feat_blocks, (int)smem,
-                                    st);
+                                    cs);
 }
 
 }  // namespace
 
+// H, W: the feature grid; st: the query grid's stride over it (the query grid
+// is H / st x W / st; 1 where every pixel is a query).
 extern "C" int vfi_deformable_sample_f32(const void* feat, const void* flow,
                                          const void* residual, void* out, int B2,
-                                         int H, int W, int C, int G, int S, int vec_bytes,
-                                         int index_bits, void* stream) {
-  return launch<float>(feat, flow, residual, out, B2, H, W, C, G, S, vec_bytes, index_bits,
+                                         int H, int W, int C, int G, int S, int st,
+                                         int vec_bytes, int index_bits, void* stream) {
+  return launch<float>(feat, flow, residual, out, B2, H, W, C, G, S, st, vec_bytes, index_bits,
                        stream);
 }
 
 extern "C" int vfi_deformable_sample_bf16(const void* feat, const void* flow,
                                           const void* residual, void* out, int B2,
-                                          int H, int W, int C, int G, int S, int vec_bytes,
-                                          int index_bits, void* stream) {
-  return launch<__nv_bfloat16>(feat, flow, residual, out, B2, H, W, C, G, S, vec_bytes,
+                                          int H, int W, int C, int G, int S, int st,
+                                          int vec_bytes, int index_bits, void* stream) {
+  return launch<__nv_bfloat16>(feat, flow, residual, out, B2, H, W, C, G, S, st, vec_bytes,
                                index_bits, stream);
 }
 
 // grad_feat: on the shared-memory path (path 1) feat's shape and dtype; on
 // the global path (path 0) an fp32 buffer of feat's shape, zeroed by the
-// caller. grad_residual and grad_flow: residual's and flow's shapes, in the
-// inputs' dtype. K: the shared-memory path's channels per block.
+// caller. grad_residual and grad_flow: residual's and flow's shapes (the
+// query grid), in the inputs' dtype. K: the shared-memory path's channels
+// per block.
 extern "C" int vfi_deformable_sample_bwd_f32(const void* feat, const void* flow,
                                              const void* residual, const void* grad_out,
                                              void* grad_feat, void* grad_residual,
                                              void* grad_flow, int B2, int H, int W, int C,
-                                             int G, int S, int vec_bytes, int index_bits,
-                                             int path, int K, void* stream) {
+                                             int G, int S, int st, int vec_bytes,
+                                             int index_bits, int path, int K, void* stream) {
   return launch_bwd<float>(feat, flow, residual, grad_out, grad_feat, grad_residual, grad_flow,
-                           B2, H, W, C, G, S, vec_bytes, index_bits, path, K, stream);
+                           B2, H, W, C, G, S, st, vec_bytes, index_bits, path, K, stream);
 }
 
 extern "C" int vfi_deformable_sample_bwd_bf16(const void* feat, const void* flow,
                                               const void* residual, const void* grad_out,
                                               void* grad_feat, void* grad_residual,
                                               void* grad_flow, int B2, int H, int W, int C,
-                                              int G, int S, int vec_bytes, int index_bits,
-                                              int path, int K, void* stream) {
+                                              int G, int S, int st, int vec_bytes,
+                                              int index_bits, int path, int K, void* stream) {
   return launch_bwd<__nv_bfloat16>(feat, flow, residual, grad_out, grad_feat, grad_residual,
-                                   grad_flow, B2, H, W, C, G, S, vec_bytes, index_bits, path, K,
-                                   stream);
+                                   grad_flow, B2, H, W, C, G, S, st, vec_bytes, index_bits, path,
+                                   K, stream);
 }

@@ -111,6 +111,12 @@ class CoarseToFineDAT(nn.Module):
 
 
 class DATwConstantnC(CoarseToFineDAT):
+    """The flagship with the JAX model's options: ``shared_offsets`` (one
+    bool, or one per level lv3, lv2, lv1), ``n_samples``, ``attn_strides``
+    (only lv1 may be 2), ``movement_nf`` (per level, None for ``nf``),
+    ``ref_offset_units`` and ``window_sampling`` (each block's, see
+    :class:`..nn.CrossDeformableAttentionBlock`)."""
+
     def __init__(self, nf: int = 72, enc_res_blocks: int = 5, dec_res_blocks: int = 10,
                  mlp_ratio: float = 2.0, window_sampling: bool = False,
                  shared_offsets: bool | tuple = False, n_samples: tuple = (8, 16, 32),
@@ -122,6 +128,9 @@ class DATwConstantnC(CoarseToFineDAT):
         ns3, ns2, ns1 = n_samples
         st3, st2, st1 = attn_strides
         mv3, mv2, mv1 = movement_nf or (None, None, None)
+        if st3 != 1 or st2 != 1:
+            raise ValueError("attn_strides: only the finest level (lv1) may be strided; "
+                             "lv3 and lv2 predict the next level's flows (pred_res_flow)")
         common = dict(mlp_ratio=mlp_ratio, window_sampling=window_sampling,
                       ref_offset_units=ref_offset_units)
         self.dat_lv3 = CrossDeformableAttentionBlock(

@@ -231,6 +231,22 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return _Logistic.apply(x)
 
 
+def avg_pool(x: torch.Tensor, s: int) -> torch.Tensor:
+    """``flax.linen.avg_pool(x, (s, s), strides=(s, s))`` of ``(B, H, W, C)``
+    (H and W divisible by ``s``): the ``s x s`` window's sum, taken one term
+    at a time in row-major window order in ``x``'s dtype, as XLA's
+    reduce-window takes it on the CPU (in bf16 each partial sum is rounded),
+    then divided by ``s * s``."""
+    B, H, W, C = x.shape
+    cells = x.reshape(B, H // s, s, W // s, s, C)
+    total = cells[:, :, 0, :, 0]
+    for i in range(s):
+        for j in range(s):
+            if i or j:
+                total = total + cells[:, :, i, :, j]
+    return total / (s * s)
+
+
 class FeedForward(nn.Module):
     """Per-pixel MLP: Dense, exact (erf) GELU, Dense."""
 

@@ -6,7 +6,9 @@
         --teacher_shared --teacher_samples 8,16,8 --distill_w 1.0 \
         --out_dir runs/ [--resume] [--stop_at N] [--device cuda]
 
-Trains a DAT-family model (the flagship ``DATwConstantnCv1``, or
+Trains a DAT-family model (the flagship ``DATwConstantnCv1``, with its
+variants ``--shared`` or ``--shared_levels``, ``--samples``,
+``--attn_stride``, ``--movement_nf`` and ``--dec_res_blocks``; or
 ``DATwConstantnCTPU``, with ``--dilated`` for the dilated taps
 ``OFFSET_SETS`` and ``--goff`` for 4/8/8 learned offset groups) from
 scratch (or, with ``--resume``, from ``<out_dir>/<tag>.ckpt``) on the
@@ -16,7 +18,13 @@ fp32 master parameters, AdamW over the warmup-cosine schedule
 (``start_lr`` 2e-4 to ``end_lr`` 1e-5 at ``--steps``), the flagship's loss
 (Charbonnier, census, flow distillation) and, with ``--distill_from``, the
 frozen teacher's output distillation ``distill_w * Charbonnier(pred -
-pred_teacher)``; the teacher is served in bf16. Each step draws its batch
+pred_teacher)``; the teacher (``--teacher_shared``, ``--teacher_samples``,
+``--teacher_nf``; the other options at their defaults, as the JAX tool
+builds it) is served in bf16. ``--random_t lo,hi`` draws the training
+pool's instants from that range (the held-out pool stays at t = 0.5). The
+pool lives on the device and each batch is gathered there, or, with
+``--host_pool``, stays on the host and each batch is copied over; the
+batches are the same bits either way. Each step draws its batch
 indices from ``np.random.PCG64(seed + 777)``, as the JAX tool does, and a
 resumed run fast-forwards that sampler by ``step`` draws, so the batch
 stream and the schedule are those of an uninterrupted run; the held-out
@@ -29,10 +37,7 @@ are the JAX tool's. ``--out_dir`` has no default, so the committed curves
 under ``tools/quality/results`` are never appended to. ``--chunk`` is the
 number of steps between two reads of the loss on the host (the JAX tool
 scans that many steps in one dispatch); it must divide ``--eval_every``
-and ``--steps``. Options of the JAX tool that the port does not have yet
-(``--attn_stride``, ``--movement_nf``, ``--shared_levels``, ``--random_t``,
-``--host_pool``, ``--teacher_nf``, ``--dec_res_blocks`` other than 10)
-raise ``NotImplementedError``.
+and ``--steps``.
 """
 
 from __future__ import annotations
@@ -53,10 +58,6 @@ from ..train import (create_train_state, make_distill_loss_fn, make_loss_fn, rea
                      state_from_flax, state_to_flax, train_step, write_flax_state)
 from .eval_best import build_pool, score
 
-# The JAX tool's options that the port does not have yet, with the value
-# that leaves them off.
-UNPORTED = {"attn_stride": 1, "movement_nf": None, "shared_levels": None, "random_t": None,
-            "host_pool": False, "teacher_nf": None, "dec_res_blocks": 10}
 # DAT-TPU's dilated per-axis taps at levels 3, 2 and 1 (--dilated), and its
 # learned offset groups (--goff), as the JAX tool sets them.
 OFFSET_SETS = ((-2, -1, 0, 1, 2), (-4, -2, -1, 0, 1, 2, 4), (-6, -4, -2, -1, 0, 1, 2, 4, 6))
@@ -88,20 +89,50 @@ def batch_sampler(seed: int, pool: int, batch: int, step0: int = 0) -> np.random
     return sampler
 
 
+def _ints(text: str | None) -> tuple | None:
+    return tuple(int(x) for x in text.split(",")) if text else None
+
+
+def shared_offsets(args: argparse.Namespace) -> tuple[bool | tuple, str]:
+    """The model's ``shared_offsets`` and its part of the tag: per level
+    (lv3, lv2, lv1) from ``--shared_levels`` (which overrides
+    ``--shared``), else ``--shared`` for every level."""
+    if args.shared_levels:
+        levels = {int(x) for x in args.shared_levels.split(",")}
+        return (tuple(lv in levels for lv in (3, 2, 1)),
+                "_shared" + "".join(str(lv) for lv in sorted(levels, reverse=True)))
+    return bool(args.shared), "_shared" if args.shared else ""
+
+
 def result_tag(args: argparse.Namespace) -> str:
-    """The JAX tool's tag for the options the port has."""
-    samples = tuple(int(x) for x in args.samples.split(",")) if args.samples else None
+    """The JAX tool's tag, part by part in its order."""
+    samples, movement_nf = _ints(args.samples), _ints(args.movement_nf)
     return (args.model + ("_dilated" if args.dilated else "") + ("_goff" if args.goff else "")
-            + ("_shared" if args.shared else "")
+            + shared_offsets(args)[1]
             + ("_s" + "-".join(map(str, samples)) if samples else "")
+            + (f"_stride{args.attn_stride}" if args.attn_stride != 1 else "")
+            + ("_mv" + "-".join(map(str, movement_nf)) if movement_nf else "")
+            + (f"_dec{args.dec_res_blocks}" if args.dec_res_blocks != 10 else "")
             + ((f"_distill{args.distill_w}"
                 + (("T" + "-".join(args.teacher_samples.split(",")))
                    if args.teacher_samples else ""))
                if args.distill_from else "")
             + (f"_nf{args.nf}" if args.nf != 72 else "")
+            + (("_rt" + "-".join(x.replace("0.", "") for x in args.random_t.split(",")))
+               if args.random_t else "")
             + (f"_seed{args.seed}" if args.seed != 42 else "")
             + (f"_{args.steps // 1000}k" if args.steps != 4000 else "")
             + (args.tag_suffix or ""))
+
+
+def take_batch(pool: dict, idx: np.ndarray, device: torch.device) -> dict:
+    """The batch of pool items ``idx`` on ``device``: gathered on the device
+    from a pool of tensors there, or, from a pool of numpy arrays on the
+    host (``--host_pool``), gathered on the host and copied over."""
+    if isinstance(next(iter(pool.values())), np.ndarray):
+        return {k: torch.from_numpy(v[idx]).to(device) for k, v in pool.items()}
+    ix = torch.from_numpy(idx).to(device)
+    return {k: v.index_select(0, ix) for k, v in pool.items()}
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -125,6 +156,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="a teacher checkpoint (flax msgpack TrainState); adds "
                          "distill_w * Charbonnier(pred - pred_teacher)")
     ap.add_argument("--distill_w", type=float, default=0.5)
+    ap.add_argument("--teacher_nf", type=int, default=None,
+                    help="teacher width (default: --nf)")
     ap.add_argument("--teacher_shared", action="store_true")
     ap.add_argument("--teacher_samples", default=None,
                     help="teacher per-level samples, e.g. 8,16,8 (default 8,16,32)")
@@ -135,21 +168,25 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="DAT-TPU: learned per-group offsets (4, 8, 8 groups)")
     ap.add_argument("--samples", default=None,
                     help="per-level samples 'lv3,lv2,lv1' (default 8,16,32)")
+    ap.add_argument("--shared_levels", default=None,
+                    help="DAT levels with shared offsets, e.g. '2,1' (overrides --shared)")
+    ap.add_argument("--attn_stride", type=int, default=1,
+                    help="lv1's query-grid stride (2: a quarter of the finest level's "
+                         "queries, a learned upsample back)")
+    ap.add_argument("--movement_nf", default=None,
+                    help="movement-extractor width per level 'lv3,lv2,lv1' (default: nf)")
+    ap.add_argument("--dec_res_blocks", type=int, default=10,
+                    help="generator residual blocks")
+    ap.add_argument("--random_t", default=None,
+                    help="training pool's t range 'lo,hi'; the held-out pool stays at 0.5")
+    ap.add_argument("--host_pool", action="store_true",
+                    help="keep the pool on the host and copy each batch (the same batches)")
     ap.add_argument("--stop_at", type=int, default=None,
                     help="stop at this step, keeping the --steps schedule")
     ap.add_argument("--tag_suffix", default=None)
     ap.add_argument("--out_dir", required=True)
     ap.add_argument("--device", default="cuda")
-    for flag, default in UNPORTED.items():
-        if isinstance(default, bool):
-            ap.add_argument(f"--{flag}", action="store_true", help=argparse.SUPPRESS)
-        else:
-            ap.add_argument(f"--{flag}", type=type(default) if default is not None else str,
-                            default=default, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    for flag, default in UNPORTED.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(f"--{flag} is not ported yet")
     if args.eval_every % args.chunk or args.steps % args.chunk:
         raise SystemExit("--chunk must divide --eval_every and --steps")
     return args
@@ -170,10 +207,12 @@ def main(argv: list[str] | None = None) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = result_tag(args)
     out_path = out_dir / f"{tag}.jsonl"
-    samples = tuple(int(x) for x in args.samples.split(",")) if args.samples else (8, 16, 32)
     cfg = Config(model_name=args.model, nf=args.nf, compute_dtype="bfloat16", start_lr=2e-4,
                  end_lr=1e-5, last_lr_decay_iter=args.steps, warmup_steps=args.warmup,
-                 seed=args.seed, shared_offsets=bool(args.shared), dat_samples=samples,
+                 seed=args.seed, shared_offsets=shared_offsets(args)[0],
+                 dat_samples=_ints(args.samples) or (8, 16, 32),
+                 dec_res_blocks=args.dec_res_blocks, dat_attn_stride=(1, 1, args.attn_stride),
+                 dat_movement_nf=_ints(args.movement_nf),
                  offset_sets=OFFSET_SETS if args.dilated else None,
                  n_offset_groups=OFFSET_GROUPS if args.goff else (0, 0, 0))
     torch.manual_seed(cfg.seed)
@@ -184,19 +223,19 @@ def main(argv: list[str] | None = None) -> dict:
     crop = (args.crop, args.crop)
     print("generating scene pools ...", flush=True)
     t0 = time.perf_counter()
-    pool = {k: torch.from_numpy(v).to(device)
-            for k, v in build_pool(args.pool, crop, args.seed, is_train=True).items()}
+    random_t = tuple(float(x) for x in args.random_t.split(",")) if args.random_t else False
+    pool = build_pool(args.pool, crop, args.seed, is_train=True, random_t=random_t)
+    if not args.host_pool:
+        pool = {k: torch.from_numpy(v).to(device) for k, v in pool.items()}
     val = build_pool(args.eval_items, crop, args.seed, is_train=False)
     print(f"pools ready ({time.perf_counter() - t0:.0f}s)", flush=True)
 
     if args.distill_from:
-        t_samples = (tuple(int(x) for x in args.teacher_samples.split(","))
-                     if args.teacher_samples else (8, 16, 32))
-        # The student's architecture with the teacher's offsets and samples,
-        # and neither dilated taps nor offset groups, as the JAX tool builds it.
-        t_cfg = dataclasses.replace(cfg, shared_offsets=bool(args.teacher_shared),
-                                    dat_samples=t_samples, offset_sets=None,
-                                    n_offset_groups=(0, 0, 0))
+        # The teacher's width, offsets and samples, every other option at
+        # its default, as the JAX tool builds it.
+        t_cfg = Config(model_name=args.model, nf=args.teacher_nf or args.nf,
+                       compute_dtype="bfloat16", shared_offsets=bool(args.teacher_shared),
+                       dat_samples=_ints(args.teacher_samples) or (8, 16, 32))
         teacher = load_model(t_cfg, args.distill_from, device=device)
         for p in teacher.parameters():
             p.requires_grad_(False)
@@ -253,9 +292,8 @@ def main(argv: list[str] | None = None) -> dict:
                 events[0].record()
             losses = []
             for i in idx:
-                ix = torch.from_numpy(i).to(device)
-                batch = {k: v.index_select(0, ix) for k, v in pool.items()}
-                losses.append(train_step(state, loss_fn, batch)["total_loss"])
+                losses.append(train_step(state, loss_fn, take_batch(pool, i, device))
+                              ["total_loss"])
             if events is not None:
                 events[1].record()
                 timed.append(events)
