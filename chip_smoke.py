@@ -16,9 +16,10 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      128x128, B2 16) and of ``validate_synthetic``'s batch (4 pairs of
      256x448, B2 8) for the shared-offset student (G 1, S 8/8/2), the
      non-shared checkpoint (G 4/8/8, S 8/16/32) and the teacher (G 1, S
-     8/16/8), at the chunk of 8 tiles of 512x512 (B2 16) of the student
-     and the non-shared checkpoint, at the student's full 720x1280 pair
-     and its flow probe's 176x320 forward (B2 2), and at edge cases (far,
+     8/16/8), DCNDAT's (C 64, G 8/4/4, S 9) of a 448x256 request and of a
+     validation batch (4 pairs of 256x448, B2 8), at the chunk of 8 tiles
+     of 512x512 (B2 16) of the student and the non-shared checkpoint, at
+     the student's full 720x1280 pair and its flow probe's 176x320 forward (B2 2), and at edge cases (far,
      integer, edge and negative positions, narrow groups, an odd group width, feat
      misaligned by a storage offset), in fp32 (max |diff| 0.0) and in bf16
      (0 ulps from the fp32 sampling of its bf16 inputs, rounded once); at
@@ -30,7 +31,8 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      sampler's backward kernel against autograd through the plain version
      (``deformable_sample_backward_plain``) at the student's and the
      teacher's level shapes of a training batch (8 pairs of 128x128, B2
-     16) and at edge cases (far outside, integer
+     16), DCNDAT's at its recipe (12 pairs of 256x256, B2 24) and at phase
+     15's fp32 step (B2 4), and at edge cases (far outside, integer
      coordinates, every sample of every query on one pixel, odd group
      widths), in fp32 (each gradient within 1e-5 of its max abs) and bf16
      (at most 1 ulp from the fp32 gradient of the bf16 inputs, rounded
@@ -62,7 +64,8 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      bound, its plain version's time and F.grid_sample's time; the same
      for the stride arm's strided level 1 (``sampler_probe.main(2)`` and
      ``main_backward(2)``, on ``F.grid_sample``'s and
-     ``grid_sampler_2d_backward``'s same coordinates);
+     ``grid_sampler_2d_backward``'s same coordinates), and the backward at
+     DCNDAT's training levels (``main_backward(levels="dcndat")``);
   6. gather: the two gather probes
      (``videoframeinterpolation_tpu_torch.tools.perf.gather_probe`` and
      ``.lane_gather_probe``) at every shape: one checked launch each,
@@ -90,8 +93,10 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      largest) is printed beside the CPU's own change under rounding-level
      noise on its parameters (each times 1 + 2^-24 z); (b) the
      recipe through ``tools/head_to_head.py`` in bf16, resumed from that
-     TrainState for 500 steps to step 15000 on the 768-scene pool: the
-     step-15000 ``train_loss`` within 5% of the record's and the held-out
+     TrainState for 500 steps to step 15000 on the 768-scene pool (its
+     pools rendered beforehand in worker processes, as phase 11's scenes;
+     the later ``head_to_head`` pools of phases 15 and 16 are parts of
+     them): the step-15000 ``train_loss`` within 5% of the record's and the held-out
      PSNR within 0.2 dB of it (``RECORD_15000``), with 3 student forward, 3
      teacher forward and 3 backward sampler launches per step (the backward
      all on its shared-memory path); ms per step
@@ -138,29 +143,34 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      one data worker): B is sent SIGTERM once its log shows step
      ``SIGTERM_AT_STEP``, exits 0 with ``latest`` saved, and ``--resume
      latest`` finishes it; its final parameters are held to C's within
-     twice the gap between C and a second uninterrupted run (the card sums
-     ``grad_feat`` in a varying order). ``evaluate --exp_name`` on the card
+     twice the gap between C and a second uninterrupted run C2 (the card
+     sums ``grad_feat`` in a varying order; C and C2 run beside B).
+     ``evaluate --exp_name`` on the card
      in fp32 within 0.005 dB and 5e-5 SSIM of the same on the CPU;
- 15. families (runs after 14, on its tree): IFRNet and DAT-TPU from
-     ``configs/IFRNet.yaml`` and ``configs/DAT_TPU.yaml`` at full width,
-     and the quality study's dilated + group-offset DAT-TPU, each with a
-     TrainState drawn with numpy from ``FAMILY_SEED``
-     (``seeded_family_state``; no checkpoint of either family is
-     committed). (a) Each written by the port's checkpoint writer and
-     served through ``load_model`` in the YAML's bf16: four 448x256
-     requests through ``interp_pair``, no sampler launch; one request card
+ 15. families (runs after 14, on its tree): IFRNet, DAT-TPU and DCNDAT
+     from ``configs/IFRNet.yaml``, ``configs/DAT_TPU.yaml`` and
+     ``configs/archive/DCNDAT.yaml`` at full width, and the quality study's
+     dilated + group-offset DAT-TPU, each with a TrainState drawn with numpy
+     from ``FAMILY_SEED`` (``seeded_family_state``; no checkpoint of any
+     family is committed). (a) Each written by the port's checkpoint writer
+     and served through ``load_model`` in the YAML's bf16: four 448x256
+     requests through ``interp_pair``, ``FAMILY_LAUNCHES`` bf16 sampler
+     launches each (DCNDAT 3, the others none); one request card
      against CPU as in phase 4; the fp32 frame on the held-out scene
      ``FAMILY_SCENE`` within 0.005 dB (PSNR against its true middle frame)
      and 1e-4 (its mean) of the JAX package's CPU fp32 read
      (``JAX_FAMILIES``); ms per frame in bf16 and fp32; device operations
      per request and busy share (``tools/profile_serve.py``). (b) One fp32
      training step of each (its own recipe, TF32 off, batch 2 at 128x128)
-     card against CPU to phase 10 (a)'s limits; the production trainer's
+     card against CPU to phase 10 (a)'s limits, with ``FAMILY_LAUNCHES``
+     forward and backward launches; the production trainer's
      CLI with each YAML at its recipe (IFRNet batch 6, crop 224, with the
-     forward flows written for its 48 sequences; DAT-TPU batch 12, crop
-     256) for one epoch of 8 steps, ``RUN_FAMILY``'s cadences and
-     ``FAMILY_PROFILE_STEPS`` traced: ms per step, ``data_time`` share,
-     peak memory, busy share, no sampler launch, ``latest``,
+     forward flows written for its 48 sequences; DAT-TPU and DCNDAT batch
+     12, crop 256, DCNDAT on ``Vimeo90KwFlow``) for one epoch of 8 steps,
+     ``RUN_FAMILY``'s cadences and ``FAMILY_PROFILE_STEPS`` traced: ms per
+     step, ``data_time`` share, peak memory, busy share,
+     ``FAMILY_LAUNCHES`` launches per step, backward step, validation batch
+     and image summary, ``latest``,
      ``epoch_001`` and ``best_vimeo90k`` restoring bit for bit;
      ``evaluate --exp_name`` on the card in fp32 within 0.005 dB and 5e-5
      SSIM of the same on the CPU. (c) ``tools/head_to_head.py`` on the
@@ -320,7 +330,9 @@ TPU_EVAL_BEST = {"DAT_fast": (39.0322, 0.98176), "DAT": (37.9752, 0.97795),
 # Phase 2, the sampler's backward kernel: name -> (B2, H, W, C, G, S, residual
 # scale, flow magnitude). The levels of a training batch (8 pairs of
 # 128x128, B2 16) of the student (S 8/8/2) and the teacher (S 8/16/8; its
-# lv3 is the student's), then edge cases: every tap outside, integer
+# lv3 is the student's); DCNDAT's (C 64, G 8/4/4, S 9) at its recipe (12
+# pairs of 256x256, B2 24) and at phase 15's fp32 step (2 pairs of 128x128,
+# B2 4); then edge cases: every tap outside, integer
 # coordinates, groups of 9 and 7 channels, and every sample of every query
 # on one pixel (all atomics of the call into four taps).
 BACKWARD_CASES = {
@@ -329,6 +341,12 @@ BACKWARD_CASES = {
     "train_student_lv1": (16, 64, 64, 72, 1, 2, 8.0, 4.0),
     "train_teacher_lv2": (16, 32, 32, 72, 1, 16, 4.0, 4.0),
     "train_teacher_lv1": (16, 64, 64, 72, 1, 8, 8.0, 4.0),
+    "train_dcndat_lv3": (24, 32, 32, 64, 8, 9, 2.0, 4.0),
+    "train_dcndat_lv2": (24, 64, 64, 64, 4, 9, 2.0, 4.0),
+    "train_dcndat_lv1": (24, 128, 128, 64, 4, 9, 2.0, 4.0),
+    "step_dcndat_lv3": (4, 16, 16, 64, 8, 9, 2.0, 4.0),
+    "step_dcndat_lv2": (4, 32, 32, 64, 4, 9, 2.0, 4.0),
+    "step_dcndat_lv1": (4, 64, 64, 64, 4, 9, 2.0, 4.0),
     "far_outside": (2, 9, 13, 40, 8, 3, 30.0, 1e4),
     "integer": (2, 16, 16, 72, 1, 8, 2.0, 3.0),
     "cg9": (1, 9, 13, 72, 8, 3, 30.0, 4.0),
@@ -373,7 +391,7 @@ TRAINER_TEACHER = "configs/teachers/DATwConstantnCv1_shared_s8-16-8.best.ckpt"
 # PROFILE_STEPS.
 RUN_A = ["num_epochs=2", "save_latest_freq=5", "save_every_freq_epoch=1", "valid_freq_epoch=1",
          "img_summary_freq=8", "metric_summary_freq=1"]
-PROFILE_STEPS = (5, 8)
+PROFILE_STEPS = (5, 7)
 # Runs B and C: one epoch at one data worker (a reproducible data stream),
 # no validation; B is sent SIGTERM once its log shows step SIGTERM_AT_STEP,
 # then resumed from 'latest'.
@@ -381,13 +399,18 @@ RUN_BC = ["num_epochs=1", "num_workers=1", "metric_summary_freq=1", "save_latest
           "save_every_freq_epoch=1", "val_datasets=[]"]
 SIGTERM_AT_STEP = 5
 DATA_TIMED_ITEMS = 48   # training items timed on the host, per data path
-# Phase 15 (families): IFRNet and DAT-TPU from their YAMLs at full width, and
-# the quality study's dilated + group-offset DAT-TPU (head_to_head's
-# OFFSET_SETS and OFFSET_GROUPS). No checkpoint of either family is
-# committed: each TrainState is drawn with numpy from FAMILY_SEED
+# Phase 15 (families): IFRNet, DAT-TPU and DCNDAT from their YAMLs at full
+# width, and the quality study's dilated + group-offset DAT-TPU
+# (head_to_head's OFFSET_SETS and OFFSET_GROUPS). No checkpoint of any family
+# is committed: each TrainState is drawn with numpy from FAMILY_SEED
 # (seeded_family_state) at step FAMILY_STEP, the same on every machine.
 FAMILIES = {"IFRNet": "configs/IFRNet.yaml", "DAT_TPU": "configs/DAT_TPU.yaml",
-            "DAT_TPU_dilated_goff": "configs/DAT_TPU.yaml"}
+            "DAT_TPU_dilated_goff": "configs/DAT_TPU.yaml",
+            "DCNDAT": "configs/archive/DCNDAT.yaml"}
+# Sampler launches per forward (and, in training, backward launches per
+# step) of each family: DCNDAT's three levels each sample both frames in one
+# launch; the others launch none.
+FAMILY_LAUNCHES = {"IFRNet": 0, "DAT_TPU": 0, "DAT_TPU_dilated_goff": 0, "DCNDAT": 3}
 FAMILY_SEED = 15
 FAMILY_STEP = 1000
 # The held-out SyntheticMotion scene each family serves: (size, seed), index 0.
@@ -398,16 +421,21 @@ FAMILY_SCENE = ((256, 448), 16)
 #   JAX_PLATFORMS=cpu python tests/jax_cpu_reads.py --part families
 JAX_FAMILIES = {"IFRNet": (34.58601270023546, 0.48564809877938214),
                 "DAT_TPU": (19.298734448338216, 0.5239750224028241),
-                "DAT_TPU_dilated_goff": (19.246799060622894, 0.5084678643933807)}
+                "DAT_TPU_dilated_goff": (19.246799060622894, 0.5084678643933807),
+                "DCNDAT": (19.49973414223694, 0.4963412535387414)}
 FAMILY_MEAN_TOL = 1e-4
 # The production trainer on phase 14's tree at each YAML's recipe (IFRNet
 # batch 6, crop 224, with the forward flows written for its sequences;
-# DAT-TPU batch 12, crop 256), for one epoch of 8 steps: the training
-# sequences each reads, its cadences cut, the traced steps.
-FAMILY_TRAIN_SEQUENCES = {"IFRNet": 48, "DAT_TPU": 96}
+# DAT-TPU and DCNDAT batch 12, crop 256), for one epoch of 8 steps: the
+# training sequences each reads, its cadences cut, the traced steps.
+# configs/archive/DCNDAT.yaml names data_name Vimeo90K, whose batches carry
+# no flows for its distill_lambda: its run reads them (Vimeo90KwFlow, with
+# the YAML's flow_dir and distill_bwd).
+FAMILY_TRAIN_SEQUENCES = {"IFRNet": 48, "DAT_TPU": 96, "DCNDAT": 96}
+FAMILY_TRAIN_SETS = {"DCNDAT": ["data_name=Vimeo90KwFlow"]}
 RUN_FAMILY = ["num_epochs=1", "save_latest_freq=4", "save_every_freq_epoch=1",
               "valid_freq_epoch=1", "img_summary_freq=8", "metric_summary_freq=1"]
-FAMILY_PROFILE_STEPS = (5, 7)
+FAMILY_PROFILE_STEPS = (5, 6)
 # The quality study's trainer on the variant: 20 steps on a 64-scene pool.
 FAMILY_H2H = ["--model", "DATwConstantnCTPU", "--dilated", "--goff", "--steps", "20",
               "--pool", "64", "--chunk", "10", "--eval_every", "20", "--warmup", "5"]
@@ -493,11 +521,13 @@ class Phase:
         return False
 
 
-def sampler_cases(gen, level_inputs, level_sets):
+def sampler_cases(gen, level_inputs, level_sets, channels):
     """name -> (feat, flow, residual, storage offset of feat in elements), fp32
-    on the card: the level shapes, then inputs whose sample positions or
-    widths hit the sampler's edge conditions."""
-    cases = {f"{kind}_{name}": (*level_inputs(gen, B2, h, w, 72, G, S, sc), 0)
+    on the card: the level shapes (``channels[kind]`` channels, else 72),
+    then inputs whose sample positions or widths hit the sampler's edge
+    conditions."""
+    cases = {f"{kind}_{name}": (*level_inputs(gen, B2, h, w, channels.get(kind, 72), G, S,
+                                              sc), 0)
              for kind, levels in level_sets.items() for name, B2, h, w, G, S, sc in levels}
     B2, h, w, C, S = 2, 32, 56, 72, 8
     feat, flow, res = level_inputs(gen, B2, h, w, C, 1, S, 2.0)
@@ -685,7 +715,8 @@ def main() -> int:
     with Phase("kernel"):
         reached = set()
         cases = sampler_cases(gen, sampler_probe.level_inputs,
-                              {**sampler_probe.LEVEL_SETS, **path_level_sets(sampler_probe)})
+                              {**sampler_probe.LEVEL_SETS, **path_level_sets(sampler_probe)},
+                              sampler_probe.LEVEL_CHANNELS)
         for name, (feat32, flow32, res32, offset) in cases.items():
             err = check_sampler_case(name, feat32, flow32, res32, offset, reached)
             max_err["deformable_sample"] = max(max_err.get("deformable_sample", 0.0), err)
@@ -789,6 +820,8 @@ def main() -> int:
         del model32
         per_level = sampler_probe.main()
         per_level_bwd = sampler_probe.main_backward()
+        # DCNDAT's training levels (C 64, G 8/4/4, S 9; B2 24).
+        per_level_bwd_dcndat = sampler_probe.main_backward(levels="dcndat")
         # The stride arm's strided level 1 (phase 16 holds its kernels).
         strided = {"forward": sampler_probe.main(stride=2),
                    "backward": sampler_probe.main_backward(stride=2)}
@@ -812,8 +845,19 @@ def main() -> int:
                                     for dtype, rows in by_dtype.items()
                                     for name, r in rows.items()},
             "card": card}})
+        dcndat_fwd = per_level["dcndat"]["bfloat16"]
+        dcndat_bwd = per_level_bwd_dcndat["bfloat16"]
+        emit({"dcndat_sampler_speed": {
+            "served_bf16": {lv: {k: r[k] for k in ("ms", "bound_ms", "library_ms",
+                                                   "share_of_bound", "library_over_kernel")}
+                            for lv, r in dcndat_fwd.items()},
+            "train_bf16_backward": {lv: {k: r[k] for k in ("ms", "global_ms", "bound_ms",
+                                                           "library_ms", "share_of_bound")}
+                                    for lv, r in dcndat_bwd.items()},
+            "card": card}})
         bwd_ops, want_ops = {}, {}
-        for prefix, by_dtype in (("", per_level_bwd), ("strided_", strided["backward"])):
+        for prefix, by_dtype in (("", per_level_bwd), ("strided_", strided["backward"]),
+                                 ("dcndat_", per_level_bwd_dcndat)):
             for dtype, rows in by_dtype.items():
                 for name, r in rows.items():
                     for run, path in (("planned", r["plan"]["path"]), ("global", "global")):
@@ -867,6 +911,9 @@ def main() -> int:
 
     with Phase("train"):
         train = check_train(card, path_launches)
+    # Phase 10's rendered pools serve the later head_to_head runs' pools.
+    later = contextlib.ExitStack()
+    later.enter_context(cached_scenes(train.pop("scenes")))
 
     synthetic = {}
     with tempfile.TemporaryDirectory(prefix="vfi_eval_") as tmp:
@@ -887,6 +934,7 @@ def main() -> int:
             variants = check_variants(Path(tmp), gen, card, path_launches, scenes,
                                       synthetic["DAT_fast"])
     del scenes
+    later.close()
     checked_shapes |= variants["forward_held"]
 
     # Phase 13 runs last, so that it holds the shapes of every path, phases
@@ -929,7 +977,7 @@ def main() -> int:
         "source": "videoframeinterpolation_tpu_torch/kernels/csrc/deformable_sample.cu",
         "replaces": "videoframeinterpolation_tpu/kernels/window_sample.py:158",
         "launches": path_launches["serve"],
-        "launches_per_path": path_launches,
+        "launches_per_path": {k: v for k, v in path_launches.items() if "backward" not in k},
         "max_abs_err": max_err["deformable_sample"],
         "ms": total(shared, "ms"),
         "plain_ms": total(shared, "plain_ms"),
@@ -938,6 +986,8 @@ def main() -> int:
                      else "operations"),
         "library_ms": total(shared, "library_ms"),
         "dtype": "bfloat16",
+        "dcndat_request": {k: total(dcndat_fwd.values(), k) for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms")},
         "per_level": per_level,
         "card": card,
     }]
@@ -956,6 +1006,8 @@ def main() -> int:
                   "global": "grad_feat summed with global atomics (forced in phase 2 and timed "
                             "in phase 5)"},
         "launches_per_backward_path": train["backward_path_launches"],
+        "launches_per_path": {"train": train["backward_launches"],
+                              **{k: v for k, v in path_launches.items() if "backward" in k}},
         "max_abs_err": bwd_err[0],
         "max_err_over_max_abs": bwd_err[1],
         "ms": total(bwd, "ms"),
@@ -966,7 +1018,10 @@ def main() -> int:
                      else "operations"),
         "library_ms": total(bwd, "library_ms"),
         "dtype": "bfloat16",
+        "dcndat_train_step": {k: total(dcndat_bwd.values(), k) for k in (
+            "ms", "global_ms", "plain_ms", "bound_ms", "library_ms")},
         "per_level": per_level_bwd,
+        "per_level_dcndat": per_level_bwd_dcndat,
         "card": card,
     })
     strided_fwd = strided["forward"]["stride_arm"]["bfloat16"]["lv1"]
@@ -1214,11 +1269,25 @@ def check_eval(path_launches: dict) -> None:
                                  f"JAX's CPU fp32 {ref_psnr} / {ref_ssim}")
 
 def _render_scene(args):
-    """A held-out ``SyntheticMotion`` scene (run in a worker process)."""
+    """A ``SyntheticMotion`` scene of either split at the default instant
+    (run in a worker process); ``args`` is its :func:`cached_scenes` key."""
     from videoframeinterpolation_tpu_torch.data import SyntheticMotion
 
-    hw, seed, idx = args
-    return SyntheticMotion(crop_hw=hw, is_train=False, seed=seed, num_items=idx + 1)[idx]
+    hw, seed, is_train, idx = args
+    return SyntheticMotion(crop_hw=hw, is_train=is_train, seed=seed, num_items=idx + 1)[idx]
+
+
+def render_scenes(keys: list) -> dict:
+    """``key -> item`` of each :func:`cached_scenes` key, rendered in
+    spawned worker processes (an item is a function of its key alone)."""
+    start = time.perf_counter()
+    workers = min(8, os.cpu_count() or 1)
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        items = list(pool.map(_render_scene, keys, chunksize=8))
+    emit({"rendered": {"scenes": len(keys), "workers": workers,
+                       "seconds": round(time.perf_counter() - start, 3)}})
+    return dict(zip(keys, items))
 
 
 def _write_fixture(args):
@@ -1234,17 +1303,16 @@ def _write_fixture(args):
 
 @contextlib.contextmanager
 def cached_scenes(scenes: dict):
-    """Serve ``SyntheticMotion`` items of the held-out split at the default
-    instant from ``scenes`` (``(crop_hw, seed, idx) -> item``), rendered
+    """Serve ``SyntheticMotion`` items at the default instant from
+    ``scenes`` (``(crop_hw, seed, is_train, idx) -> item``), rendered
     beforehand in worker processes; other items render as usual."""
     from videoframeinterpolation_tpu_torch.data.synthetic import SyntheticMotion
 
     render = SyntheticMotion.__getitem__
 
     def getitem(self, idx):
-        key = (self.crop_hw, self.base_seed, idx)
-        if (not self.is_train and self.t_range is None and self.fixed_t is None
-                and key in scenes):
+        key = (self.crop_hw, self.base_seed, self.is_train, idx)
+        if self.t_range is None and self.fixed_t is None and key in scenes:
             return scenes[key]
         return render(self, idx)
 
@@ -1285,14 +1353,14 @@ def check_evaluate(tmp: Path, path_launches: dict, synthetic: dict):
         hd = pool.submit(_write_fixture, ("hd", None, [hd_hw], hd_seed))
         tree_jobs = [pool.submit(_write_fixture, (b, base, hws, seed))
                      for b, (base, hws, seed) in trees.items()]
-        items = list(pool.map(_render_scene, [(hw, 42, i) for i in range(n)]))
+        items = list(pool.map(_render_scene, [(hw, 42, False, i) for i in range(n)]))
         hd = hd.result()
         for job in tree_jobs:
             job.result()
     fixtures.write_snu_triplets(tmp / "snu_hd", [hd])
     emit({"rendered": {"scenes": n, "trees": len(tree_jobs) + 1, "workers": workers,
                        "seconds": round(time.perf_counter() - start, 3)}})
-    scenes = {(hw, 42, i): item for i, item in enumerate(items)}
+    scenes = {(hw, 42, False, i): item for i, item in enumerate(items)}
 
     # validate_synthetic through the entry point, 64 scenes; the first
     # SYNTHETIC_ITEMS of them (the same batches of 4) are held to JAX.
@@ -1754,15 +1822,24 @@ def check_train(card: str, path_launches: dict) -> dict:
                 "--distill_from", str(t_ckpt), "--teacher_shared", "--teacher_samples", "8,16,8",
                 "--distill_w", "1.0", "--steps", "24000", "--warmup", "500", "--resume",
                 "--stop_at", "15000", "--out_dir", str(out_dir), "--device", "cuda"]
-        tag = head_to_head.result_tag(head_to_head.parse_args(args))
+        parsed = head_to_head.parse_args(args)
+        tag = head_to_head.result_tag(parsed)
         shutil.copyfile(SHIPPED_STUDENT, out_dir / f"{tag}.ckpt")
+        # The recipe's training pool and held-out pool, rendered in worker
+        # processes (the tool renders them on one core); later phases'
+        # head_to_head pools are parts of them.
+        crop = (parsed.crop, parsed.crop)
+        scenes = render_scenes([(crop, parsed.seed, True, i) for i in range(parsed.pool)]
+                               + [(crop, parsed.seed, False, i)
+                                  for i in range(parsed.eval_items)])
         teacher_launches = [0]
         make_loss = head_to_head.make_distill_loss_fn
         head_to_head.make_distill_loss_fn = counting_teacher_launches(make_loss,
                                                                       teacher_launches)
         reset_sampler_counts()
         try:
-            out = head_to_head.main(args)
+            with cached_scenes(scenes):
+                out = head_to_head.main(args)
         finally:
             head_to_head.make_distill_loss_fn = make_loss
         torch.cuda.synchronize()
@@ -1810,7 +1887,7 @@ def check_train(card: str, path_launches: dict) -> dict:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     return {"backward_launches": launches["backward"], "steps": steps,
-            "backward_path_launches": launches["backward_by_path"]}
+            "backward_path_launches": launches["backward_by_path"], "scenes": scenes}
 
 
 def _write_train_sequence(args):
@@ -2071,6 +2148,10 @@ def check_trainer(tmp: Path, card: str, path_launches: dict, launched: set,
           "--config", str(ROOT / TRAINER_RECIPE), "--device", "cuda", *_sets(RUN_BC)]
     out, log = tmp / "run_b1.json", tmp / "run_b1.log"
     proc = start_child("train", out, ["--exp_name", "B", *bc], tmp, log)
+    # C and C2 run beside B (nothing of theirs is timed).
+    runs_c = [(start_child("train", tmp / f"run_{n}.json", ["--exp_name", n.upper(), *bc], tmp,
+                           tmp / f"run_{n}.log"), tmp / f"run_{n}.json", tmp / f"run_{n}.log")
+              for n in ("c", "c2")]
     metrics, signalled = tmp / "exps" / "B" / "metrics.jsonl", None
     deadline = time.perf_counter() + 600
     while proc.poll() is None and time.perf_counter() < deadline:
@@ -2083,8 +2164,7 @@ def check_trainer(tmp: Path, card: str, path_launches: dict, launched: set,
     b1 = finish_child(proc, out, log, 600)
     b_meta = json.loads((tmp / "exps" / "B" / "checkpoints" / "latest.meta.json").read_text())
     b2 = run("train", "run_b2", ["--exp_name", "B", "--resume", "latest", *bc])
-    c = run("train", "run_c", ["--exp_name", "C", *bc])
-    c2 = run("train", "run_c2", ["--exp_name", "C2", *bc])
+    c, c2 = (finish_child(*r, 600) for r in runs_c)
     final = {name: _param_leaves(tmp / "exps" / name / "checkpoints" / "epoch_001.ckpt")
              for name in ("B", "C", "C2")}
     norm = np.linalg.norm(final["C"])
@@ -2204,7 +2284,14 @@ def check_families(tmp: Path, card: str, path_launches: dict, launched: set,
     for name in FAMILIES:
         serve_family(ckpts, name, card, path_launches)
     for name in FAMILIES:
-        family_step_card_vs_cpu(ckpts / f"{name}.ckpt", name)
+        counts = family_step_card_vs_cpu(ckpts / f"{name}.ckpt", name)
+        per_step = FAMILY_LAUNCHES[name]
+        if (counts["forward"], counts["backward"]) != (per_step, per_step):
+            raise AssertionError(f"{name}: the fp32 step on the card launched {counts}; "
+                                 f"expected {per_step} forward and {per_step} backward")
+        if per_step:
+            path_launches[f"families_step_{name}"] = counts["forward"]
+            path_launches[f"families_step_{name}_backward"] = counts["backward"]
     train_families(tmp, card, path_launches, launched, launched_backward)
     family_head_to_head(tmp, card, path_launches)
 
@@ -2212,13 +2299,14 @@ def check_families(tmp: Path, card: str, path_launches: dict, launched: set,
 def serve_family(ckpts: Path, name: str, card: str, path_launches: dict) -> None:
     """Phase 15 (a) for one family: :func:`serve_seeded` of its seeded
     TrainState from its YAML (the variant's written under ``ckpts``), with
-    no sampler launch, against ``JAX_FAMILIES``."""
+    ``FAMILY_LAUNCHES`` sampler launches per request, against
+    ``JAX_FAMILIES``."""
     from videoframeinterpolation_tpu_torch.train import state_to_flax
 
     cfg, state = seeded_family_state(name)
     serve_seeded(name, family_yaml(ckpts, name, cfg), state_to_flax(state),
                  ckpts / f"{name}.ckpt", card, path_launches, f"families_{name}",
-                 JAX_FAMILIES[name], launches=0)
+                 JAX_FAMILIES[name], launches=FAMILY_LAUNCHES[name])
 
 
 def serve_seeded(name: str, yaml: Path, tree, ckpt: Path, card: str, path_launches: dict,
@@ -2259,14 +2347,18 @@ def serve_seeded(name: str, yaml: Path, tree, ckpt: Path, card: str, path_launch
           "top_device_ops": summary["top"][:8]})
     if not summary["device_busy_ms_per_request"] > 0:
         raise AssertionError(f"{name}: the profile shows no device time: {summary}")
+    if summary["dcn_calls_per_request"] and not summary["dcn_ms_per_request"] > 0:
+        raise AssertionError(f"{name}: the profile gives the deformable convolution's "
+                             f"{summary['dcn_calls_per_request']} calls no device time")
 
 
-def family_step_card_vs_cpu(ckpt: Path, name: str) -> None:
+def family_step_card_vs_cpu(ckpt: Path, name: str) -> dict:
     """Phase 15 (b), first part: :func:`step_card_vs_cpu` from the family's
-    seeded TrainState."""
+    seeded TrainState (with the launches it returns)."""
     from videoframeinterpolation_tpu_torch.train import read_flax_state
 
-    step_card_vs_cpu(family_config(name, compute_dtype="float32"), read_flax_state(ckpt), name)
+    return step_card_vs_cpu(family_config(name, compute_dtype="float32"),
+                            read_flax_state(ckpt), name)
 
 
 def step_card_vs_cpu(cfg32, tree, name: str) -> dict:
@@ -2337,9 +2429,11 @@ def train_families(tmp: Path, card: str, path_launches: dict, launched: set,
     YAML at its recipe on phase 14's tree (``FAMILY_TRAIN_SEQUENCES``; for
     IFRNet a root beside it listing its first 48 sequences, with their
     forward flows written under the YAML's ``flow_dir``), for one epoch of 8
-    steps with ``RUN_FAMILY``'s cadences, ``FAMILY_PROFILE_STEPS`` traced;
-    ms per step, the ``data_time`` share, peak memory, the busy share; no
-    sampler launch; ``latest``, ``epoch_001`` and ``best_vimeo90k`` restore
+    steps with ``RUN_FAMILY``'s cadences (and ``FAMILY_TRAIN_SETS``),
+    ``FAMILY_PROFILE_STEPS`` traced; ms per step, the ``data_time`` share,
+    peak memory, the busy share; ``FAMILY_LAUNCHES`` sampler launches per
+    training step, backward step, validation batch and image summary, all
+    in bf16; ``latest``, ``epoch_001`` and ``best_vimeo90k`` restore
     bit for bit; then ``evaluate --exp_name`` on the card in fp32 within
     0.005 dB and 5e-5 SSIM of the same on the CPU."""
     from videoframeinterpolation_tpu_torch import evaluate
@@ -2352,34 +2446,36 @@ def train_families(tmp: Path, card: str, path_launches: dict, launched: set,
     tree = tmp / "datasets" / "vimeo_triplet"
     hw, seed = TRAINER_TREE["hw"], TRAINER_TREE["seed"]
     ifrnet = tmp / "datasets" / "vimeo_ifrnet"
-    ifrnet.mkdir()
-    flow_dir = Config.from_yaml(ROOT / FAMILIES["IFRNet"]).flow_dir
-    n_ifrnet = FAMILY_TRAIN_SEQUENCES["IFRNet"]
-    start = time.perf_counter()
-    with concurrent.futures.ProcessPoolExecutor(
-            min(8, os.cpu_count() or 1), mp_context=multiprocessing.get_context("spawn")) as pool:
-        list(pool.map(_write_forward_flows,
-                      [(ifrnet, i, hw, seed, flow_dir) for i in range(n_ifrnet)]))
-    (ifrnet / "sequences").symlink_to(tree / "sequences")
-    (ifrnet / "tri_testlist.txt").write_text((tree / "tri_testlist.txt").read_text())
-    fixtures.write_vimeo90k_trainlist(ifrnet, n_ifrnet)
-    emit({"family_forward_flows": {"sequences": n_ifrnet, "flow_dir": flow_dir,
-                                   "seconds": round(time.perf_counter() - start, 3)}})
+    if "IFRNet" in FAMILY_TRAIN_SEQUENCES:
+        ifrnet.mkdir()
+        flow_dir = Config.from_yaml(ROOT / FAMILIES["IFRNet"]).flow_dir
+        n_ifrnet = FAMILY_TRAIN_SEQUENCES["IFRNet"]
+        start = time.perf_counter()
+        with concurrent.futures.ProcessPoolExecutor(
+                min(8, os.cpu_count() or 1),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            list(pool.map(_write_forward_flows,
+                          [(ifrnet, i, hw, seed, flow_dir) for i in range(n_ifrnet)]))
+        (ifrnet / "sequences").symlink_to(tree / "sequences")
+        (ifrnet / "tri_testlist.txt").write_text((tree / "tri_testlist.txt").read_text())
+        fixtures.write_vimeo90k_trainlist(ifrnet, n_ifrnet)
+        emit({"family_forward_flows": {"sequences": n_ifrnet, "flow_dir": flow_dir,
+                                       "seconds": round(time.perf_counter() - start, 3)}})
 
     def run(kind, name, argv, timeout=600):
         out, log = tmp / f"{name}.json", tmp / f"{name}.log"
         return finish_child(start_child(kind, out, argv, tmp, log), out, log, timeout)
 
     n_test = TRAINER_TREE["test"]
-    roots = {"IFRNet": ifrnet, "DAT_TPU": tree}
+    roots = {name: ifrnet if name == "IFRNet" else tree for name in FAMILY_TRAIN_SEQUENCES}
     for name, root in roots.items():
         exp_name = f"family_{name}"
         torch.cuda.empty_cache()
         start = time.perf_counter()
         r = run("train", exp_name, ["--exp_name", exp_name, "--config", str(ROOT / FAMILIES[name]),
                                     "--set", f"root={root}", "--device", "cuda",
-                                    *_sets(RUN_FAMILY), "--profile_steps",
-                                    ",".join(map(str, FAMILY_PROFILE_STEPS))])
+                                    *_sets(RUN_FAMILY + FAMILY_TRAIN_SETS.get(name, [])),
+                                    "--profile_steps", ",".join(map(str, FAMILY_PROFILE_STEPS))])
         seconds = time.perf_counter() - start
         exp = tmp / "exps" / exp_name
         cfg = Config.from_yaml(exp / "config.yaml")
@@ -2392,6 +2488,18 @@ def train_families(tmp: Path, card: str, path_launches: dict, launched: set,
         val = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()
                if "val/vimeo90k/val/vimeo90k_psnr" in line]
         path_launches[f"families_trainer_{name}"] = r["launches"]
+        per_step = FAMILY_LAUNCHES[name]
+        if per_step:
+            path_launches[f"families_trainer_{name}_backward"] = r["backward_launches"]
+        n_val = cfg.num_epochs * -(-n_test // 4)        # test batches of 4 per epoch
+        expect = {"training_forward": per_step * spe, "backward": per_step * spe,
+                  "validation_forward": per_step * n_val,
+                  "image_forward": per_step * (spe // cfg.img_summary_freq), "fp32_forward": 0}
+        got = {"training_forward": (r["launches"] - r["validation_launches"]
+                                    - r["image_launches"]),
+               "backward": r["backward_launches"], "validation_forward": r["validation_launches"],
+               "image_forward": r["image_launches"],
+               "fp32_forward": r["launches"] - r["bf16_launches"]}
         emit({"family_trainer": {
             "family": name, "model": cfg.model_name, "batch_size": cfg.batch_size,
             "crop": [cfg.crop_h, cfg.crop_w], "dtype": cfg.compute_dtype, "steps": r["steps"],
@@ -2403,13 +2511,15 @@ def train_families(tmp: Path, card: str, path_launches: dict, launched: set,
             "peak_memory_bytes": r["peak_memory_bytes"],
             "val_psnr": [x["val/vimeo90k/val/vimeo90k_psnr"] for x in val],
             "sampler_launches": r["launches"], "sampler_backward_launches": r["backward_launches"],
+            "sampler_launches_by_kind": got,
+            "sampler_backward_by_path": r["backward_path_launches"],
             "profile": {k: v for k, v in r["profile"].items() if k != "top"},
             "top_device_ops": r["profile"]["top"][:10], "card": card}})
         if (r["steps"] != spe or spe != 8 or [x["step"] for x in records] != list(range(1, 9))
-                or len(val) != 1 or r["launches"] or r["backward_launches"]):
+                or len(val) != 1 or got != expect):
             raise AssertionError(f"{name}: {r['steps']} steps, logged "
                                  f"{[x['step'] for x in records]}, validations {len(val)}, "
-                                 f"sampler launches {r['launches']} / {r['backward_launches']}")
+                                 f"sampler launches {got}, expected {expect}")
         if not r["profile"]["busy_share"] or not 0 < r["profile"]["busy_share"] <= 1:
             raise AssertionError(f"{name}: the profile shows no device time: {r['profile']}")
         ckpts = CheckpointManager(exp, create=False)

@@ -16,9 +16,9 @@ Prints one JSON line per read, for the constants of ``chip_smoke.py``:
     magnitude for ``chip_smoke.HD_PAIR`` at ``--tile 512``, as the JAX
     ``evaluate.py`` (fp32) and ``interpolate.py`` (the YAML's bf16) make it
     (``JAX_HD_PLAN``);
-  * ``families``: the fp32 frame of IFRNet, DAT-TPU and the dilated +
-    group-offset DAT-TPU (``chip_smoke.FAMILIES``, at full width from
-    their YAMLs) at t = 0.5 on the held-out scene
+  * ``families``: the fp32 frame of IFRNet, DAT-TPU, the dilated +
+    group-offset DAT-TPU and DCNDAT (``chip_smoke.FAMILIES``, at full width
+    from their YAMLs) at t = 0.5 on the held-out scene
     ``chip_smoke.FAMILY_SCENE``, with the parameters
     ``chip_smoke.seeded_family_state`` draws, written by the port's
     checkpoint writer and read by flax: its PSNR against the scene's true

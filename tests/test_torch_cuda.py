@@ -3,7 +3,8 @@
 ``chip_smoke.py`` holds the kernels against their plain versions at the
 shapes of the serving path and of the gather probes; these tests hold the
 sampler at the DAT level shapes of the three checkpoints (a 448x256
-request and a held-out evaluation batch of each), at narrow and odd
+request and a held-out evaluation batch of each) and of DCNDAT's 448x256
+request (C 64, G 8/4/4, S 9), at narrow and odd
 group widths, at a storage offset, at every vector width and both index
 widths, and add odd sizes for the gathers (a table height that is no
 multiple of 32), the row gather at both index widths (a misaligned table
@@ -12,8 +13,9 @@ width the call does not fit, and one counted launch per call; and
 ``multi_t_apply`` on the card, whose frames equal the per-instant
 forward's bit for bit; and the sampler's backward kernel against autograd
 through the plain version, at the student's and the teacher's level shapes
-of a training batch and at edge cases (far outside, integer coordinates,
-every sample of every query on one pixel, odd group widths), in fp32
+of a training batch, DCNDAT's at its recipe (B2 24), and at edge cases
+(far outside, integer coordinates, every sample of every query on one
+pixel, odd group widths), in fp32
 (each gradient within 1e-5 of its max abs: fp32 sums in another order,
 atomics in a changing order) and in bf16 (at most 1 bf16 ulp from the fp32
 gradient of the bf16 inputs, rounded once; where those fp32 sums cancel,
@@ -21,7 +23,8 @@ so that the two orders differ by more than an ulp of the small result,
 within the fp32 limit instead), at every vector and index width, with one
 counted backward launch per call of the autograd Function; the global
 backward path, forced, beside the planned shared-memory path at the
-student's and the teacher's training levels and at the edge cases, with
+student's, the teacher's and DCNDAT's training levels and at the edge
+cases, with
 ``grad_residual`` and ``grad_flow`` equal bit for bit over two launches
 (they are summed without atomics; ``grad_feat``, summed with atomics, is
 held to the tolerance only), the refusal of a plan that does not fit the
@@ -84,6 +87,11 @@ SAMPLER_CASES = {
     "eval_non_shared_lv1": (16, 64, 64, 72, 8, 32, 8.0, 0),
     "eval_teacher_lv2": (16, 32, 32, 72, 1, 16, 4.0, 0),
     "eval_teacher_lv1": (16, 64, 64, 72, 1, 8, 8.0, 0),
+    # DCNDAT's levels of a 448x256 request (nf 64, G 8/4/4, S 9, offset
+    # scale 2: 8 and 16 channels per group).
+    "dcndat_lv3": (2, 32, 56, 64, 8, 9, 2.0, 0),
+    "dcndat_lv2": (2, 64, 112, 64, 4, 9, 2.0, 0),
+    "dcndat_lv1": (2, 128, 224, 64, 4, 9, 2.0, 0),
 }
 
 
@@ -243,13 +251,17 @@ def test_multi_t_apply_equals_the_per_instant_forward_on_the_card(gen):
 
 # (B2, H, W, C, G, S, residual scale, flow magnitude): the levels of a
 # training batch (8 pairs of 128x128, B2 16) of the student (S 8/8/2) and
-# the teacher (S 8/16/8; its lv3 is the student's), and edge cases.
+# the teacher (S 8/16/8; its lv3 is the student's), DCNDAT's at its recipe
+# (12 pairs of 256x256, B2 24), and edge cases.
 BACKWARD_CASES = {
     "train_student_lv3": (16, 16, 16, 72, 1, 8, 2.0, 4.0),
     "train_student_lv2": (16, 32, 32, 72, 1, 8, 4.0, 4.0),
     "train_student_lv1": (16, 64, 64, 72, 1, 2, 8.0, 4.0),
     "train_teacher_lv2": (16, 32, 32, 72, 1, 16, 4.0, 4.0),
     "train_teacher_lv1": (16, 64, 64, 72, 1, 8, 8.0, 4.0),
+    "train_dcndat_lv3": (24, 32, 32, 64, 8, 9, 2.0, 4.0),
+    "train_dcndat_lv2": (24, 64, 64, 64, 4, 9, 2.0, 4.0),
+    "train_dcndat_lv1": (24, 128, 128, 64, 4, 9, 2.0, 4.0),
     "far_outside": (2, 9, 13, 40, 8, 3, 30.0, 1e4),
     "cg9": (1, 9, 13, 72, 8, 3, 30.0, 4.0),
     "odd_cg7": (2, 11, 17, 21, 3, 5, 3.0, 4.0),
@@ -338,7 +350,8 @@ def test_autograd_on_the_card_runs_the_backward_kernel_once(gen):
 
 # The cases of both backward paths: the training levels, then edge cases.
 PATH_CASES = ["train_student_lv3", "train_student_lv2", "train_student_lv1",
-              "train_teacher_lv2", "train_teacher_lv1", "one_pixel", "cg9", "odd_cg7"]
+              "train_teacher_lv2", "train_teacher_lv1", "one_pixel", "cg9", "odd_cg7",
+              "train_dcndat_lv3", "train_dcndat_lv2", "train_dcndat_lv1"]
 
 
 def _plan(name, dtype, path):

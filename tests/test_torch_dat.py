@@ -97,6 +97,13 @@ def student_bf16(student):
     return jmodel, jparams, pmodel
 
 
+@pytest.fixture(scope="module")
+def jax_apply(student, student_bf16):
+    """The shipped student's jitted JAX forward in fp32 and in bf16, shared
+    by the tests of this file (each compiles once per shape)."""
+    return {"float32": jax.jit(student[0].apply), "bfloat16": jax.jit(student_bf16[0].apply)}
+
+
 @pytest.mark.parametrize("shared_offsets,n_samples", [(True, (8, 8, 2)),
                                                       (False, (8, 16, 32))])
 def test_small_dat_matches_jax(shared_offsets, n_samples):
@@ -119,11 +126,11 @@ def test_small_dat_matches_jax(shared_offsets, n_samples):
     assert np.abs(out - ref).max() <= SMALL_TOL
 
 
-def test_shipped_student_matches_jax(student):
-    jmodel, jparams, pmodel = student
+def test_shipped_student_matches_jax(student, jax_apply):
+    _, jparams, pmodel = student
     x0, x1 = _pair(64, 64, seed=3)
     t = np.full((1, 1, 1, 1), 0.5, np.float32)
-    ref = np.asarray(jax.jit(jmodel.apply)(jparams, x0, x1, t))
+    ref = np.asarray(jax_apply["float32"](jparams, x0, x1, t))
     with torch.no_grad():
         out = pmodel(torch.from_numpy(x0), torch.from_numpy(x1), torch.from_numpy(t)).numpy()
     err = np.abs(out - ref)
@@ -133,13 +140,13 @@ def test_shipped_student_matches_jax(student):
 
 
 @pytest.mark.parametrize("pair", ["video", "white_noise"])
-def test_shipped_student_bf16_matches_jax(student, student_bf16, pair):
-    jmodel32, jparams, _ = student
-    jmodel, _, pmodel = student_bf16
+def test_shipped_student_bf16_matches_jax(student, student_bf16, jax_apply, pair):
+    _, jparams, _ = student
+    _, _, pmodel = student_bf16
     x0, x1 = _video_pair(64, 64, seed=3) if pair == "video" else _pair(64, 64, seed=3)
     t = np.full((1, 1, 1, 1), 0.5, np.float32)
-    ref = np.asarray(jax.jit(jmodel.apply)(jparams, x0, x1, t))
-    ref32 = np.asarray(jax.jit(jmodel32.apply)(jparams, x0, x1, t))
+    ref = np.asarray(jax_apply["bfloat16"](jparams, x0, x1, t))
+    ref32 = np.asarray(jax_apply["float32"](jparams, x0, x1, t))
     with torch.no_grad():
         out = pmodel(torch.from_numpy(x0), torch.from_numpy(x1), torch.from_numpy(t)).numpy()
     gap = np.abs(ref - ref32).mean()
@@ -155,7 +162,7 @@ def test_shipped_student_bf16_matches_jax(student, student_bf16, pair):
 
 @pytest.mark.parametrize("dtype,pair", [("float32", "white_noise"), ("bfloat16", "video"),
                                         ("bfloat16", "white_noise")])
-def test_interp_pair_matches_jax_cli(student, student_bf16, dtype, pair):
+def test_interp_pair_matches_jax_cli(student, student_bf16, jax_apply, dtype, pair):
     """Padding (40x56 -> 48x64), inference, unpadding and uint8 quantisation
     against the JAX CLI's ``_interp_pair``, both serving the same config.
 
@@ -166,8 +173,8 @@ def test_interp_pair_matches_jax_cli(student, student_bf16, dtype, pair):
     own bf16 and fp32 frames; on the white-noise pair, where the flips grow
     to about 1e-2, at most 4 levels apart, and on average no further apart
     than those."""
-    jmodel32, jparams, pmodel32 = student
-    jmodel16, _, pmodel16 = student_bf16
+    _, jparams, pmodel32 = student
+    _, _, pmodel16 = student_bf16
     spec = importlib.util.spec_from_file_location("jax_interpolate_cli", ROOT / "interpolate.py")
     cli = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cli)
@@ -178,18 +185,19 @@ def test_interp_pair_matches_jax_cli(student, student_bf16, dtype, pair):
         img0 = (rng.random((40, 56, 3)) * 255).astype(np.uint8)
         img1 = np.roll(img0, 2, axis=1)
 
-    def jax_cli(jmodel):
-        infer = jax.jit(lambda a, b, t: jmodel.apply(jparams, a, b, t))
-        return cli._interp_pair(infer, img0, img1, 0.25).astype(np.int16)
+    def jax_cli(dtype):
+        apply = jax_apply[dtype]
+        return cli._interp_pair(lambda a, b, t: apply(jparams, a, b, t), img0, img1,
+                                0.25).astype(np.int16)
 
-    ref32 = jax_cli(jmodel32)
+    ref32 = jax_cli("float32")
     if dtype == "float32":
         out = interpolate.interp_pair(pmodel32, img0, img1, 0.25)
         assert out.dtype == np.uint8 and out.shape == ref32.shape == (40, 56, 3)
         diff = np.abs(out.astype(np.int16) - ref32)
         assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
         return
-    ref = jax_cli(jmodel16)
+    ref = jax_cli("bfloat16")
     out = interpolate.interp_pair(pmodel16, img0, img1, 0.25)
     assert out.dtype == np.uint8 and out.shape == ref.shape == (40, 56, 3)
     diff = np.abs(out.astype(np.int16) - ref)

@@ -203,10 +203,10 @@ def _check_module(jax_module, port_module, inputs, seed, noise=0.1, params=None)
     inputs and every parameter, flax against the port (same parameters)."""
     rng = np.random.default_rng(seed)
     if params is None:
-        params = jax_module.init(jax.random.key(seed), *inputs)["params"]
+        params = jax.jit(jax_module.init)(jax.random.key(seed), *inputs)["params"]
         params = jax.tree_util.tree_map(
             lambda p: np.asarray(p) + rng.normal(0, noise, p.shape).astype(np.float32), params)
-    out = jax_module.apply({"params": params}, *inputs)
+    out = jax.eval_shape(jax_module.apply, {"params": params}, *inputs)
     outs = out if isinstance(out, tuple) else (out,)
     cots = [_rand(rng, *o.shape) for o in outs]
 
@@ -252,7 +252,7 @@ def test_generator_clip_passes_half_the_gradient_at_its_bounds():
     feat = _rand(rng, 1, 4, 4, nf)
     mean = np.full((1, 1, 1, 1), 0.25, np.float32)
     jmod = jnn.BasicResPixelShuffleGenerator(nf, 1)
-    params = jmod.init(jax.random.key(7), feat, mean)["params"]
+    params = jax.jit(jmod.init)(jax.random.key(7), feat, mean)["params"]
     params = jax.tree_util.tree_map(
         lambda p: np.asarray(p) + rng.normal(0, 0.1, p.shape).astype(np.float32), params)
     params["conv_last"]["kernel"] = np.zeros_like(params["conv_last"]["kernel"])

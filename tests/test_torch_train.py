@@ -79,19 +79,30 @@ def _batch(B=2, H=32, W=32, seed=0):
             "f1x": (rng.standard_normal((B, H, W, 2)) * 0.02).astype(np.float32)}
 
 
-def _perturbed_init(module, batch, key, seed):
-    params = jax.jit(module.init)(jax.random.key(key), batch["x0"][:1], batch["x1"][:1],
-                                  batch["t"][:1])
+def _init(module, key):
+    """``module``'s flax initialisation from ``key`` at one 32x32 pair."""
+    batch = _batch(B=1)
+    return jax.jit(module.init)(jax.random.key(key), batch["x0"], batch["x1"], batch["t"])
+
+
+def _perturbed(params, seed):
     rng = np.random.default_rng(seed)
     return jax.tree_util.tree_map(
         lambda a: np.asarray(a) + rng.normal(0, 0.05, a.shape).astype(np.float32), params)
 
 
 @pytest.fixture(scope="module")
-def setup():
+def student_init():
+    """The student's flax initialisation from key 0, compiled once for the
+    tests that read it."""
+    return _init(JaxDAT(**KW), 0)
+
+
+@pytest.fixture(scope="module")
+def setup(student_init):
     batch = _batch()
-    params = _perturbed_init(JaxDAT(**KW), batch, 0, 2)
-    t_params = _perturbed_init(JaxDAT(**TEACHER_KW), batch, 1, 3)
+    params = _perturbed(student_init, 2)
+    t_params = _perturbed(_init(JaxDAT(**TEACHER_KW), 1), 3)
     return batch, params, t_params
 
 
@@ -176,14 +187,11 @@ def test_distill_gradients_in_bf16_against_jaxs_own_gap(setup, jax_fp32):
     assert vs16 <= gap
 
 
-def test_init_follows_the_jax_rules():
+def test_init_follows_the_jax_rules(student_init):
     """Each parameter is drawn by its JAX counterpart's rule: the same zeros
     (biases, the offset and mask predictors), PReLU at 0.25, and the same
     spread (std within 20% for every kernel of 1,000 or more values)."""
-    batch = _batch(B=1)
-    ref = params_from_flax(jax.jit(JaxDAT(**KW).init)(jax.random.key(0), batch["x0"],
-                                                      batch["x1"], batch["t"]),
-                           DATwConstantnC(**KW))
+    ref = params_from_flax(student_init, DATwConstantnC(**KW))
     torch.manual_seed(0)
     model = DATwConstantnC(**KW)
     for name, p in model.named_parameters():
@@ -198,7 +206,7 @@ def test_init_follows_the_jax_rules():
     assert all(not p.any() for n, p in model.named_parameters() if n.endswith("bias"))
 
 
-def test_port_written_checkpoint_restores_in_flax(tmp_path):
+def test_port_written_checkpoint_restores_in_flax(tmp_path, student_init):
     """A port TrainState written by ``write_flax_state`` is restored by
     ``flax.serialization.from_bytes`` into the JAX package's TrainState of
     the same model, leaf for leaf."""
@@ -215,9 +223,9 @@ def test_port_written_checkpoint_restores_in_flax(tmp_path):
 
     jcfg = JaxConfig(model_name="DATwConstantnCv1", compute_dtype="float32", **TINY)
     jmodel = jax_create_model(jcfg)
-    batch = _batch(B=1)
-    jparams = jax.jit(jmodel.init)(jax.random.key(0), batch["x0"], batch["x1"], batch["t"])
-    restored = fser.from_bytes(jax_train_state(jmodel, jparams, jcfg), path.read_bytes())
+    # The config's model is the student: its initialisation is the template.
+    assert jmodel == JaxDAT(**KW)
+    restored = fser.from_bytes(jax_train_state(jmodel, student_init, jcfg), path.read_bytes())
     assert int(restored.step) == 37
     assert int(restored.opt_state[0].count) == int(restored.opt_state[2].count) == 37
     ours = state_to_flax(state)

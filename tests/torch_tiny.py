@@ -37,14 +37,16 @@ TINY_FLAGS = ["--nf", "16", "--shared", "--samples", "4,4,2", "--dec_res_blocks"
 TINY_STEP = 7
 
 
-def write_tiny_checkpoint(path: Path, seed: int = 0, cfg=TINY) -> Path:
-    """``cfg``'s TrainState at step ``TINY_STEP``, written as a flax msgpack file."""
+def write_tiny_checkpoint(path: Path, seed: int = 0, cfg=TINY, scale: float = 0.1) -> Path:
+    """``cfg``'s TrainState at step ``TINY_STEP``, its parameters the port's
+    initialisation plus seeded normal noise of ``scale``, written as a flax
+    msgpack file."""
     torch.manual_seed(seed)
     model = create_model(cfg, torch.float32)
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for p in model.parameters():
-            p.add_(torch.from_numpy(rng.normal(0, 0.1, tuple(p.shape)).astype(np.float32)))
+            p.add_(torch.from_numpy(rng.normal(0, scale, tuple(p.shape)).astype(np.float32)))
     state = create_train_state(model, cfg)
     state.step = TINY_STEP
     write_flax_state(path, state_to_flax(state))

@@ -1,9 +1,10 @@
 """Model registry (counterpart of ``videoframeinterpolation_tpu/models/__init__.py``).
 
 Ported: the flagship ``DATwConstantnC`` (alias ``DATwConstantnCv1``),
-``IFRNet`` and ``DATwConstantnCTPU``, each built from a ``Config`` as the
-JAX registry builds it (``videoframeinterpolation_tpu/models/__init__.py:39-91``);
-the archive families are not ported yet. ``compute_dtype`` maps as in the
+``IFRNet``, ``DATwConstantnCTPU`` and ``DCNDAT`` (alias ``DCNDATv1``), each
+built from a ``Config`` as the JAX registry builds it
+(``videoframeinterpolation_tpu/models/__init__.py:39-102``); the other
+archive families are not ported yet. ``compute_dtype`` maps as in the
 JAX registry (``videoframeinterpolation_tpu/models/__init__.py:32-36``).
 """
 
@@ -16,6 +17,7 @@ from ..config import Config
 from .base import multi_t_apply
 from .dat import CoarseToFineDAT, DATwConstantnC, dat_loss
 from .dat_tpu import DATwConstantnCTPU, dat_tpu_loss
+from .dcndat import DCNDAT, dcndat_loss
 from .ifrnet import IFRNet, ifrnet_loss
 
 
@@ -39,13 +41,19 @@ def _dat_tpu(c: Config, dtype: torch.dtype) -> DATwConstantnCTPU:
         n_offset_groups=tuple(c.n_offset_groups), compute_dtype=dtype)
 
 
+def _dcndat(c: Config, dtype: torch.dtype) -> DCNDAT:
+    return DCNDAT(nf=c.nf, enc_res_blocks=c.enc_res_blocks, dec_res_blocks=c.dec_res_blocks,
+                  mlp_ratio=c.mlp_ratio, compute_dtype=dtype)
+
+
 def _ifrnet(c: Config, dtype: torch.dtype) -> IFRNet:
     # As in JAX, the widths are IFRNet's own, not the config's ``channels``.
     return IFRNet(compute_dtype=dtype)
 
 
 MODEL_REGISTRY = {"DATwConstantnC": _dat, "DATwConstantnCv1": _dat,
-                  "DATwConstantnCTPU": _dat_tpu, "IFRNet": _ifrnet}
+                  "DATwConstantnCTPU": _dat_tpu, "IFRNet": _ifrnet, "DCNDAT": _dcndat,
+                  "DCNDATv1": _dcndat}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -76,6 +84,6 @@ def create_model(cfg: Config, params_dtype: torch.dtype | None = None) -> nn.Mod
     return build(cfg, dtype).to(params_dtype or dtype)
 
 
-__all__ = ["CoarseToFineDAT", "DATwConstantnC", "DATwConstantnCTPU", "IFRNet", "compute_dtype",
-           "create_model", "dat_loss", "dat_tpu_loss", "ifrnet_loss", "multi_t_apply",
-           "MODEL_REGISTRY"]
+__all__ = ["CoarseToFineDAT", "DATwConstantnC", "DATwConstantnCTPU", "DCNDAT", "IFRNet",
+           "compute_dtype", "create_model", "dat_loss", "dat_tpu_loss", "dcndat_loss",
+           "ifrnet_loss", "multi_t_apply", "MODEL_REGISTRY"]

@@ -1,6 +1,7 @@
 """The DAT levels' deformable sampler on the card, at the level shapes the port's paths launch.
 
-    python -m videoframeinterpolation_tpu_torch.tools.perf.sampler_probe [--backward] [--stride 2]
+    python -m videoframeinterpolation_tpu_torch.tools.perf.sampler_probe \
+        [--backward [--train_levels student|dcndat]] [--stride 2]
 
 Times :func:`...kernels.window_sample.deformable_sample` at the three levels
 of each served configuration: the shared-offset student
@@ -8,7 +9,9 @@ of each served configuration: the shared-offset student
 (``configs/DAT.yaml``: G 4/8/8, S 8/16/32) and the distillation teacher
 (G 1, S 8/16/8), each at a 448x256 request (B2 2: both frames of one
 pair) and at a held-out evaluation batch (8 pairs of 128x128, B2 16), with
-C 72 (nf 72), in bf16 and fp32. Per level it prints the kernel's time on
+C 72 (nf 72); and DCNDAT (``configs/archive/DCNDAT.yaml``: C 64, G 8/4/4,
+S 9) at a 448x256 request and a validation batch (4 pairs of 256x448, B2
+8); in bf16 and fp32. Per level it prints the kernel's time on
 the device's clock (calls captured in a CUDA graph, marginal over 16
 calls), its time issued from Python, the plain version's,
 ``F.grid_sample``'s on the same work (device clock, inputs arranged
@@ -21,8 +24,9 @@ device, and raises without one. Timing launches are not counted in
 With ``--backward`` it times the backward (``_launch_backward``, the
 whole call: its kernels and whatever buffers and casts its path needs) at
 the student's three levels of a training batch (``TRAIN_LEVELS``: 8 pairs
-of 128x128, B2 16, S 8/8/2), on the path ``_backward_plan`` picks and on
-the global path forced, beside autograd through the plain version,
+of 128x128, B2 16, S 8/8/2), or with ``--train_levels dcndat`` at DCNDAT's
+(its recipe's 12 pairs of 256x256, B2 24, C 64, G 8/4/4, S 9), on the
+path ``_backward_plan`` picks and on the global path forced, beside autograd through the plain version,
 ``F.grid_sample``'s backward on the same work (``aten::grid_sampler_2d_backward``,
 both gradients) and the bound: bytes, each input (feat, flow, residual,
 grad_out) read once and each gradient written once in the inputs' dtype;
@@ -65,24 +69,37 @@ CONFIG_LEVELS = {"shared": ((1, 8), (1, 8), (1, 2)),
                  "non_shared": ((4, 8), (8, 16), (8, 32)),
                  "teacher": ((1, 8), (1, 16), (1, 8))}
 SCALES = (2.0, 4.0, 8.0)
+# DCNDAT (configs/archive/DCNDAT.yaml): nf 64, non-shared offsets, G 8/4/4,
+# S 9 and offset scale 2 at every level.
+DCNDAT_C = 64
+DCNDAT_LEVELS = ((8, 9), (4, 9), (4, 9))
+DCNDAT_SCALES = (2.0, 2.0, 2.0)
 
 
-def _levels(B2: int, H: int, W: int, gs) -> tuple:
+def _levels(B2: int, H: int, W: int, gs, scales=SCALES) -> tuple:
     """``(name, B2, h, w, G, S, offset_scale)`` of the three DAT levels of an
     ``H x W`` input (1/8, 1/4 and 1/2 of it)."""
-    return tuple((f"lv{3 - i}", B2, H // d, W // d, G, S, SCALES[i])
+    return tuple((f"lv{3 - i}", B2, H // d, W // d, G, S, scales[i])
                  for i, ((G, S), d) in enumerate(zip(gs, (8, 4, 2))))
 
 
 # A 448x256 request (B2 2) and a held-out evaluation batch (8 pairs of
-# 128x128, B2 16) of each configuration.
+# 128x128, B2 16) of each configuration, and DCNDAT's 448x256 request and
+# validation batch (4 pairs of 256x448, B2 8).
 LEVEL_SETS = {**{kind: _levels(2, 256, 448, gs) for kind, gs in CONFIG_LEVELS.items()},
               **{f"eval_{kind}": _levels(16, 128, 128, gs)
-                 for kind, gs in CONFIG_LEVELS.items()}}
+                 for kind, gs in CONFIG_LEVELS.items()},
+              "dcndat": _levels(2, 256, 448, DCNDAT_LEVELS, DCNDAT_SCALES),
+              "eval4_dcndat": _levels(8, 256, 448, DCNDAT_LEVELS, DCNDAT_SCALES)}
+# The channels of each level set (C unless named here).
+LEVEL_CHANNELS = {"dcndat": DCNDAT_C, "eval4_dcndat": DCNDAT_C}
 
 
-# The student's levels of a training batch (8 pairs of 128x128, B2 16).
+# The student's levels of a training batch (8 pairs of 128x128, B2 16), and
+# DCNDAT's at its recipe (12 pairs of 256x256, B2 24), each with its channels.
 TRAIN_LEVELS = _levels(16, 128, 128, CONFIG_LEVELS["shared"])
+TRAIN_LEVEL_SETS = {"student": (TRAIN_LEVELS, C),
+                    "dcndat": (_levels(24, 256, 256, DCNDAT_LEVELS, DCNDAT_SCALES), DCNDAT_C)}
 
 # The attn_stride variant's level 1 (the quality study's stride arm: shared
 # offsets, S 16, the query grid of stride 2 over the 1/2-scale features),
@@ -203,9 +220,10 @@ def backward_level_times(feat: torch.Tensor, flow: torch.Tensor, res: torch.Tens
             "device_ops": {k: v["device_ops"] for k, v in paths.items()}}
 
 
-def main_backward(stride: int = 1) -> dict:
+def main_backward(stride: int = 1, levels: str = "student") -> dict:
     """``{"bfloat16" | "float32": {level: row}}`` of the backward kernel at
-    ``TRAIN_LEVELS``, or at ``STRIDED_TRAIN_LEVELS`` with ``stride``."""
+    ``TRAIN_LEVEL_SETS[levels]`` (the student's by default), or at
+    ``STRIDED_TRAIN_LEVELS`` with ``stride``."""
     card = require_card()
     print(card, flush=True)
     build.load_library()
@@ -214,9 +232,12 @@ def main_backward(stride: int = 1) -> dict:
             print(json.dumps({"ptxas": row}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows: dict = {}
-    for name, B2, h, w, G, S, scale in (TRAIN_LEVELS if stride == 1 else STRIDED_TRAIN_LEVELS):
-        fp32 = level_inputs(gen, B2, h, w, C, G, S, scale, stride=stride)
-        grad_out = torch.randn((B2, S, h * w // stride ** 2, C), generator=gen, device="cuda")
+    train_levels, channels = (TRAIN_LEVEL_SETS[levels] if stride == 1
+                              else (STRIDED_TRAIN_LEVELS, C))
+    for name, B2, h, w, G, S, scale in train_levels:
+        fp32 = level_inputs(gen, B2, h, w, channels, G, S, scale, stride=stride)
+        grad_out = torch.randn((B2, S, h * w // stride ** 2, channels), generator=gen,
+                               device="cuda")
         for dtype in (torch.bfloat16, torch.float32):
             row = backward_level_times(*(x.to(dtype) for x in (*fp32, grad_out)), stride=stride)
             rows.setdefault(row["dtype"], {})[name] = row
@@ -234,7 +255,8 @@ def main(stride: int = 1) -> dict:
     rows: dict = {}
     for kind, levels in (LEVEL_SETS if stride == 1 else STRIDED_LEVELS).items():
         for name, B2, h, w, G, S, scale in levels:
-            fp32 = level_inputs(gen, B2, h, w, C, G, S, scale, stride=stride)
+            fp32 = level_inputs(gen, B2, h, w, LEVEL_CHANNELS.get(kind, C), G, S, scale,
+                                stride=stride)
             for dtype in (torch.bfloat16, torch.float32):
                 row = level_times(*(x.to(dtype) for x in fp32), stride=stride)
                 rows.setdefault(kind, {}).setdefault(row["dtype"], {})[name] = row
@@ -250,5 +272,10 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--backward", action="store_true")
     ap.add_argument("--stride", type=int, choices=(1, STRIDE), default=1)
+    ap.add_argument("--train_levels", choices=sorted(TRAIN_LEVEL_SETS), default="student",
+                    help="with --backward: the student's training levels or DCNDAT's")
     args = ap.parse_args()
-    (main_backward if args.backward else main)(args.stride)
+    if args.backward:
+        main_backward(args.stride, args.train_levels)
+    else:
+        main(args.stride)

@@ -9,23 +9,52 @@ compute dtype, TF32 off, cuDNN's default algorithm choice), at B=1,
 checkpoint (default: the shipped DAT_fast student), or a YAML file of any
 ported model with ``--ckpt``. Traces ``--requests`` requests after
 warm-up, and prints the device kernels by total time, the device
-operations per request, the deformable sampler's share, and the device's
+operations per request, the deformable sampler's share, the plain
+deformable convolution's share (``ops/dcn.py:deform_conv2d``: the device
+time of the kernels its calls launch, each call traced inside a
+``record_function`` range that only this tool opens) and the device's
 busy share of the traced wall time. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
+import sys
 import time
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..config import PRESETS
 from ..interpolate import config_and_ckpt, load_model
+from ..ops import dcn
+
+DCN_RANGE = "deform_conv2d"
+
+
+@contextlib.contextmanager
+def traced_as(fn, name: str):
+    """While open, every module of the port that holds ``fn`` under a name
+    calls it inside ``record_function(name)``."""
+    def traced(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+
+    root = __name__.split(".")[0]
+    held = [(m, attr) for m in list(sys.modules.values())
+            if getattr(m, "__name__", "").startswith(root)
+            for attr, v in list(vars(m).items()) if v is fn]
+    for m, attr in held:
+        setattr(m, attr, traced)
+    try:
+        yield
+    finally:
+        for m, attr in held:
+            setattr(m, attr, fn)
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -60,7 +89,8 @@ def main(argv: list[str] | None = None) -> dict:
         end.record()
         torch.cuda.synchronize()
         frame_ms = start.elapsed_time(end) / 20
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with (traced_as(dcn.deform_conv2d, DCN_RANGE),
+              profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof):
             start = time.perf_counter()
             for _ in range(args.requests):
                 model(x0, x1, t)
@@ -68,7 +98,13 @@ def main(argv: list[str] | None = None) -> dict:
             wall_ms = (time.perf_counter() - start) * 1e3
 
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
+               and e.key != DCN_RANGE]
+    # Each traced call's range on the host: the device time of the kernels
+    # launched inside it.
+    dcn_calls = [e for e in prof.events()
+                 if e.name == DCN_RANGE and e.device_type == torch.autograd.DeviceType.CPU]
+    dcn_ms = sum(e.device_time_total for e in dcn_calls) / 1e3
     kernels.sort(key=lambda e: e.device_time_total, reverse=True)
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     rows = [{"kernel": e.key[:120], "calls_per_request": e.count / args.requests,
@@ -89,6 +125,9 @@ def main(argv: list[str] | None = None) -> dict:
         "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
         "sampler_ms_per_request": sum(r["ms_per_request"] for r in sampler),
         "sampler_share_of_busy": sum(r["share"] for r in sampler),
+        "dcn_calls_per_request": len(dcn_calls) / args.requests,
+        "dcn_ms_per_request": dcn_ms / args.requests,
+        "dcn_share_of_busy": dcn_ms / busy_ms if busy_ms else 0.0,
         "top": rows[:args.top],
     }
     for r in rows[:args.top]:
