@@ -147,26 +147,31 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      sums ``grad_feat`` in a varying order; C and C2 run beside B).
      ``evaluate --exp_name`` on the card
      in fp32 within 0.005 dB and 5e-5 SSIM of the same on the CPU;
- 15. families (runs after 14, on its tree): IFRNet, DAT-TPU and DCNDAT
-     from ``configs/IFRNet.yaml``, ``configs/DAT_TPU.yaml`` and
-     ``configs/archive/DCNDAT.yaml`` at full width, and the quality study's
+ 15. families (runs after 14, on its tree): IFRNet, DAT-TPU, DCNDAT and
+     DCNTrans v1 from ``configs/IFRNet.yaml``, ``configs/DAT_TPU.yaml``,
+     ``configs/archive/DCNDAT.yaml`` and ``configs/archive/DCNTrans.yaml``
+     at full width, and the quality study's
      dilated + group-offset DAT-TPU, each with a TrainState drawn with numpy
-     from ``FAMILY_SEED`` (``seeded_family_state``; no checkpoint of any
-     family is committed). (a) Each written by the port's checkpoint writer
-     and served through ``load_model`` in the YAML's bf16: four 448x256
-     requests through ``interp_pair``, ``FAMILY_LAUNCHES`` bf16 sampler
-     launches each (DCNDAT 3, the others none); one request card
-     against CPU as in phase 4; the fp32 frame on the held-out scene
+     from ``FAMILY_SEED`` (``seeded_family_state``, DCNTrans's kernels at
+     ``FAMILY_KERNEL_GAIN``; no checkpoint of any family is committed).
+     (a) Each written by the port's checkpoint writer and served through
+     ``load_model`` in the YAML's bf16: four 448x256 requests through
+     ``interp_pair``, ``FAMILY_LAUNCHES`` bf16 sampler launches each
+     (DCNDAT 3, the others none); one request card against CPU as in
+     phase 4; the fp32 frame on the held-out scene
      ``FAMILY_SCENE`` within 0.005 dB (PSNR against its true middle frame)
      and 1e-4 (its mean) of the JAX package's CPU fp32 read
      (``JAX_FAMILIES``); ms per frame in bf16 and fp32; device operations
-     per request and busy share (``tools/profile_serve.py``). (b) One fp32
+     per request, busy share, and the deformable convolution's and the
+     Swin decoders' shares (``tools/profile_serve.py``). (b) One fp32
      training step of each (its own recipe, TF32 off, batch 2 at 128x128)
      card against CPU to phase 10 (a)'s limits, with ``FAMILY_LAUNCHES``
      forward and backward launches; the production trainer's
      CLI with each YAML at its recipe (IFRNet batch 6, crop 224, with the
      forward flows written for its 48 sequences; DAT-TPU and DCNDAT batch
-     12, crop 256, DCNDAT on ``Vimeo90KwFlow``) for one epoch of 8 steps,
+     12, crop 256; DCNTrans batch 8, crop 224, on the tree's first 64
+     sequences; DCNDAT and DCNTrans on ``Vimeo90KwFlow``) for one epoch of
+     8 steps,
      ``RUN_FAMILY``'s cadences and ``FAMILY_PROFILE_STEPS`` traced: ms per
      step, ``data_time`` share, peak memory, busy share,
      ``FAMILY_LAUNCHES`` launches per step, backward step, validation batch
@@ -399,20 +404,29 @@ RUN_BC = ["num_epochs=1", "num_workers=1", "metric_summary_freq=1", "save_latest
           "save_every_freq_epoch=1", "val_datasets=[]"]
 SIGTERM_AT_STEP = 5
 DATA_TIMED_ITEMS = 48   # training items timed on the host, per data path
-# Phase 15 (families): IFRNet, DAT-TPU and DCNDAT from their YAMLs at full
-# width, and the quality study's dilated + group-offset DAT-TPU
+RENDER_WORKERS = min(8, os.cpu_count() or 1)   # render_pool's worker processes
+# Phase 15 (families): IFRNet, DAT-TPU, DCNDAT and DCNTrans v1 from their
+# YAMLs at full width, and the quality study's dilated + group-offset DAT-TPU
 # (head_to_head's OFFSET_SETS and OFFSET_GROUPS). No checkpoint of any family
 # is committed: each TrainState is drawn with numpy from FAMILY_SEED
 # (seeded_family_state) at step FAMILY_STEP, the same on every machine.
 FAMILIES = {"IFRNet": "configs/IFRNet.yaml", "DAT_TPU": "configs/DAT_TPU.yaml",
             "DAT_TPU_dilated_goff": "configs/DAT_TPU.yaml",
-            "DCNDAT": "configs/archive/DCNDAT.yaml"}
+            "DCNDAT": "configs/archive/DCNDAT.yaml",
+            "DCNTrans": "configs/archive/DCNTrans.yaml"}
 # Sampler launches per forward (and, in training, backward launches per
 # step) of each family: DCNDAT's three levels each sample both frames in one
 # launch; the others launch none.
-FAMILY_LAUNCHES = {"IFRNet": 0, "DAT_TPU": 0, "DAT_TPU_dilated_goff": 0, "DCNDAT": 3}
+FAMILY_LAUNCHES = {"IFRNet": 0, "DAT_TPU": 0, "DAT_TPU_dilated_goff": 0, "DCNDAT": 3,
+                   "DCNTrans": 0}
 FAMILY_SEED = 15
 FAMILY_STEP = 1000
+# The factor on each family's U(+-1/sqrt(fan_in)) kernels (default 1). At
+# the full bound DCNTrans's bf16 frame at 448x256 is chaotic: it moves by
+# 0.80 of its bf16-vs-fp32 gap when its input moves by 1e-6, so that no
+# device can hold it to half of that gap; at half the bound it moves by
+# 0.06 (the port on the CPU).
+FAMILY_KERNEL_GAIN = {"DCNTrans": 0.5}
 # The held-out SyntheticMotion scene each family serves: (size, seed), index 0.
 FAMILY_SCENE = ((256, 448), 16)
 # The JAX package's CPU fp32 read of each family's frame on FAMILY_SCENE at
@@ -422,17 +436,21 @@ FAMILY_SCENE = ((256, 448), 16)
 JAX_FAMILIES = {"IFRNet": (34.58601270023546, 0.48564809877938214),
                 "DAT_TPU": (19.298734448338216, 0.5239750224028241),
                 "DAT_TPU_dilated_goff": (19.246799060622894, 0.5084678643933807),
-                "DCNDAT": (19.49973414223694, 0.4963412535387414)}
+                "DCNDAT": (19.49973414223694, 0.4963412535387414),
+                "DCNTrans": (19.837724593649583, 0.49248217925291793)}
 FAMILY_MEAN_TOL = 1e-4
 # The production trainer on phase 14's tree at each YAML's recipe (IFRNet
 # batch 6, crop 224, with the forward flows written for its sequences;
-# DAT-TPU and DCNDAT batch 12, crop 256), for one epoch of 8 steps: the
-# training sequences each reads, its cadences cut, the traced steps.
-# configs/archive/DCNDAT.yaml names data_name Vimeo90K, whose batches carry
-# no flows for its distill_lambda: its run reads them (Vimeo90KwFlow, with
-# the YAML's flow_dir and distill_bwd).
-FAMILY_TRAIN_SEQUENCES = {"IFRNet": 48, "DAT_TPU": 96, "DCNDAT": 96}
-FAMILY_TRAIN_SETS = {"DCNDAT": ["data_name=Vimeo90KwFlow"]}
+# DAT-TPU and DCNDAT batch 12, crop 256; DCNTrans batch 8, crop 224), for
+# one epoch of 8 steps: the training sequences each reads (a family that
+# reads fewer than the tree's 96 gets a root beside it that lists its
+# first ones), its cadences cut, the traced steps.
+# configs/archive/DCNDAT.yaml and DCNTrans.yaml name data_name Vimeo90K,
+# whose batches carry no flows for their flow distillation: their runs read
+# them (Vimeo90KwFlow, with the YAML's flow_dir and distill_bwd).
+FAMILY_TRAIN_SEQUENCES = {"IFRNet": 48, "DAT_TPU": 96, "DCNDAT": 96, "DCNTrans": 64}
+FAMILY_TRAIN_SETS = {"DCNDAT": ["data_name=Vimeo90KwFlow"],
+                     "DCNTrans": ["data_name=Vimeo90KwFlow"]}
 RUN_FAMILY = ["num_epochs=1", "save_latest_freq=4", "save_every_freq_epoch=1",
               "valid_freq_epoch=1", "img_summary_freq=8", "metric_summary_freq=1"]
 FAMILY_PROFILE_STEPS = (5, 6)
@@ -1279,13 +1297,11 @@ def _render_scene(args):
 
 def render_scenes(keys: list) -> dict:
     """``key -> item`` of each :func:`cached_scenes` key, rendered in
-    spawned worker processes (an item is a function of its key alone)."""
+    :func:`render_pool` (an item is a function of its key alone)."""
     start = time.perf_counter()
-    workers = min(8, os.cpu_count() or 1)
-    with concurrent.futures.ProcessPoolExecutor(
-            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        items = list(pool.map(_render_scene, keys, chunksize=8))
-    emit({"rendered": {"scenes": len(keys), "workers": workers,
+    pool = render_pool()
+    items = list(pool.map(_render_scene, keys, chunksize=8))
+    emit({"rendered": {"scenes": len(keys), "workers": RENDER_WORKERS,
                        "seconds": round(time.perf_counter() - start, 3)}})
     return dict(zip(keys, items))
 
@@ -1347,18 +1363,16 @@ def check_evaluate(tmp: Path, path_launches: dict, synthetic: dict):
     trees = {bench: (tmp / bench, hws, seed) for bench, (hws, seed) in FIXTURE_TREES.items()}
     (hd_hw, hd_seed) = HD_PAIR
     start = time.perf_counter()
-    workers = min(8, os.cpu_count() or 1)
-    with concurrent.futures.ProcessPoolExecutor(
-            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        hd = pool.submit(_write_fixture, ("hd", None, [hd_hw], hd_seed))
-        tree_jobs = [pool.submit(_write_fixture, (b, base, hws, seed))
-                     for b, (base, hws, seed) in trees.items()]
-        items = list(pool.map(_render_scene, [(hw, 42, False, i) for i in range(n)]))
-        hd = hd.result()
-        for job in tree_jobs:
-            job.result()
+    pool = render_pool()
+    hd = pool.submit(_write_fixture, ("hd", None, [hd_hw], hd_seed))
+    tree_jobs = [pool.submit(_write_fixture, (b, base, hws, seed))
+                 for b, (base, hws, seed) in trees.items()]
+    items = list(pool.map(_render_scene, [(hw, 42, False, i) for i in range(n)]))
+    hd = hd.result()
+    for job in tree_jobs:
+        job.result()
     fixtures.write_snu_triplets(tmp / "snu_hd", [hd])
-    emit({"rendered": {"scenes": n, "trees": len(tree_jobs) + 1, "workers": workers,
+    emit({"rendered": {"scenes": n, "trees": len(tree_jobs) + 1, "workers": RENDER_WORKERS,
                        "seconds": round(time.perf_counter() - start, 3)}})
     scenes = {(hw, 42, False, i): item for i, item in enumerate(items)}
 
@@ -1898,6 +1912,30 @@ def _write_train_sequence(args):
     fixtures.write_vimeo90k_train_sequence(root, index, hw, seed)
 
 
+_render_pool = None
+
+
+def render_pool() -> concurrent.futures.ProcessPoolExecutor:
+    """The spawned worker processes that render every phase's scenes and
+    trees, started at the first render and reused by the later ones (each
+    spawn imports torch, which cost a pool of its own 20-30 s on the card's
+    host). A phase renders only within itself, so the workers sit idle
+    while another phase is timed; :func:`stop_render_pool` stops them."""
+    global _render_pool
+    if _render_pool is None:
+        _render_pool = concurrent.futures.ProcessPoolExecutor(
+            RENDER_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    return _render_pool
+
+
+def stop_render_pool() -> None:
+    """Stop :func:`render_pool`'s workers, dropping the work not yet started."""
+    global _render_pool
+    if _render_pool is not None:
+        _render_pool.shutdown(cancel_futures=True)
+        _render_pool = None
+
+
 def child(kind: str, out: str, argv: list[str]) -> int:
     """``python3 chip_smoke.py --child train|evaluate OUT -- ARGS``: run the
     train or the evaluation entry point's ``main(ARGS)`` in this process,
@@ -2011,14 +2049,13 @@ def check_trainer(tmp: Path, card: str, path_launches: dict, launched: set,
     n_train, n_test, hw, seed = (TRAINER_TREE[k] for k in ("train", "test", "hw", "seed"))
     root = tmp / "datasets" / "vimeo_triplet"
     start = time.perf_counter()
-    workers = min(8, os.cpu_count() or 1)
-    with concurrent.futures.ProcessPoolExecutor(
-            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        test = pool.submit(_write_fixture, ("vimeo90k", tmp, [hw] * n_test, seed))
-        list(pool.map(_write_train_sequence, [(root, i, hw, seed) for i in range(n_train)]))
-        test.result()
+    pool = render_pool()
+    test = pool.submit(_write_fixture, ("vimeo90k", tmp, [hw] * n_test, seed))
+    list(pool.map(_write_train_sequence, [(root, i, hw, seed) for i in range(n_train)]))
+    test.result()
     fixtures.write_vimeo90k_trainlist(root, n_train)
-    emit({"trainer_tree": {"train": n_train, "test": n_test, "hw": list(hw), "workers": workers,
+    emit({"trainer_tree": {"train": n_train, "test": n_test, "hw": list(hw),
+                           "workers": RENDER_WORKERS,
                            "seconds": round(time.perf_counter() - start, 3)}})
     # The data path on this host, one thread: ms per training item (three
     # PNG decodes, two .flo reads, the augmentation) on the native and the
@@ -2218,23 +2255,27 @@ def seeded_family_state(name: str):
     """``(config, TrainState)`` of family ``name`` (:func:`seeded_state` of
     its config and ``FAMILY_SEED``)."""
     cfg = family_config(name)
-    return cfg, seeded_state(cfg, FAMILY_SEED)
+    return cfg, seeded_state(cfg, FAMILY_SEED, FAMILY_KERNEL_GAIN.get(name, 1.0))
 
 
-def seeded_state(cfg, seed: int):
+def seeded_state(cfg, seed: int, kernel_gain: float = 1.0):
     """The TrainState of ``cfg``'s model at full width on the CPU, fp32,
     with every parameter and moment drawn with numpy from ``seed`` in the
     order of the parameters' sorted names: kernels
     ``U(+-1/sqrt(fan_in))`` (the torch-default rule of ``nn/blocks.py``; the
-    zero-initialised offset predictors too, so that offsets act), biases
-    ``N(0, 0.02)``, PReLU slopes ``0.25 + N(0, 0.02)``; ``mu`` ``N(0,
+    zero-initialised offset predictors too, so that offsets act) times
+    ``kernel_gain``, biases
+    ``N(0, 0.02)``, PReLU slopes ``0.25 + N(0, 0.02)``; the Swin layers'
+    kernels and relative position bias tables ``N(0, 0.02)`` (the spread
+    of their ``truncated_normal(0.02)`` init), LayerNorm scales ``1 +
+    N(0, 0.02)``; ``mu`` ``N(0,
     1e-4)`` and ``nu`` ``U(1e-8, 1e-6)``, the moments of a run in progress,
     so that a gradient that is zero in exact arithmetic (the key
     projections' biases: the softmax ignores a shift shared by every tap)
     does not decide the sign of an update; the step and the counts
     ``FAMILY_STEP``."""
     from videoframeinterpolation_tpu_torch.models import create_model
-    from videoframeinterpolation_tpu_torch.nn.blocks import _fan_in
+    from videoframeinterpolation_tpu_torch.nn.blocks import _fan_in, trunc_normal_02
     from videoframeinterpolation_tpu_torch.train import create_train_state
 
     model = create_model(cfg, torch.float32)
@@ -2246,11 +2287,14 @@ def seeded_state(cfg, seed: int):
             owner, _, leaf = key.rpartition(".")
             if leaf == "alpha":
                 value = 0.25 + rng.normal(0, 0.02, p.shape)
-            elif leaf == "bias":
+            elif leaf == "scale":
+                value = 1.0 + rng.normal(0, 0.02, p.shape)
+            elif leaf in ("bias", "relative_position_bias_table") or (
+                    getattr(modules[owner], "kernel_init", None) is trunc_normal_02):
                 value = rng.normal(0, 0.02, p.shape)
             else:
                 bound = 1.0 / np.sqrt(_fan_in(modules[owner]))
-                value = rng.uniform(-bound, bound, p.shape)
+                value = rng.uniform(-bound, bound, p.shape) * kernel_gain
             p.copy_(torch.from_numpy(value.astype(np.float32)))
             state.opt_state.exp_avg[key].copy_(
                 torch.from_numpy(rng.normal(0, 1e-4, p.shape).astype(np.float32)))
@@ -2350,6 +2394,9 @@ def serve_seeded(name: str, yaml: Path, tree, ckpt: Path, card: str, path_launch
     if summary["dcn_calls_per_request"] and not summary["dcn_ms_per_request"] > 0:
         raise AssertionError(f"{name}: the profile gives the deformable convolution's "
                              f"{summary['dcn_calls_per_request']} calls no device time")
+    if summary["swin_calls_per_request"] and not summary["swin_ms_per_request"] > 0:
+        raise AssertionError(f"{name}: the profile gives the Swin decoders' "
+                             f"{summary['swin_calls_per_request']} calls no device time")
 
 
 def family_step_card_vs_cpu(ckpt: Path, name: str) -> dict:
@@ -2428,7 +2475,8 @@ def train_families(tmp: Path, card: str, path_launches: dict, launched: set,
     """Phase 15 (b), second part: the production trainer's CLI with each
     YAML at its recipe on phase 14's tree (``FAMILY_TRAIN_SEQUENCES``; for
     IFRNet a root beside it listing its first 48 sequences, with their
-    forward flows written under the YAML's ``flow_dir``), for one epoch of 8
+    forward flows written under the YAML's ``flow_dir``; for DCNTrans one
+    listing its first 64), for one epoch of 8
     steps with ``RUN_FAMILY``'s cadences (and ``FAMILY_TRAIN_SETS``),
     ``FAMILY_PROFILE_STEPS`` traced; ms per step, the ``data_time`` share,
     peak memory, the busy share; ``FAMILY_LAUNCHES`` sampler launches per
@@ -2451,11 +2499,8 @@ def train_families(tmp: Path, card: str, path_launches: dict, launched: set,
         flow_dir = Config.from_yaml(ROOT / FAMILIES["IFRNet"]).flow_dir
         n_ifrnet = FAMILY_TRAIN_SEQUENCES["IFRNet"]
         start = time.perf_counter()
-        with concurrent.futures.ProcessPoolExecutor(
-                min(8, os.cpu_count() or 1),
-                mp_context=multiprocessing.get_context("spawn")) as pool:
-            list(pool.map(_write_forward_flows,
-                          [(ifrnet, i, hw, seed, flow_dir) for i in range(n_ifrnet)]))
+        list(render_pool().map(_write_forward_flows,
+                               [(ifrnet, i, hw, seed, flow_dir) for i in range(n_ifrnet)]))
         (ifrnet / "sequences").symlink_to(tree / "sequences")
         (ifrnet / "tri_testlist.txt").write_text((tree / "tri_testlist.txt").read_text())
         fixtures.write_vimeo90k_trainlist(ifrnet, n_ifrnet)
@@ -2468,6 +2513,16 @@ def train_families(tmp: Path, card: str, path_launches: dict, launched: set,
 
     n_test = TRAINER_TREE["test"]
     roots = {name: ifrnet if name == "IFRNet" else tree for name in FAMILY_TRAIN_SEQUENCES}
+    for name, n in FAMILY_TRAIN_SEQUENCES.items():
+        if name != "IFRNet" and n < TRAINER_TREE["train"]:
+            # A root beside the tree that lists its first n sequences.
+            roots[name] = tmp / "datasets" / f"vimeo_{name}"
+            roots[name].mkdir()
+            for part in ("sequences", "flow"):
+                (roots[name] / part).symlink_to(tree / part)
+            (roots[name] / "tri_testlist.txt").write_text(
+                (tree / "tri_testlist.txt").read_text())
+            fixtures.write_vimeo90k_trainlist(roots[name], n)
     for name, root in roots.items():
         exp_name = f"family_{name}"
         torch.cuda.empty_cache()
@@ -2963,4 +3018,7 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         sys.exit(child(sys.argv[2], sys.argv[3], sys.argv[5:]))
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_render_pool()

@@ -17,8 +17,8 @@ Prints one JSON line per read, for the constants of ``chip_smoke.py``:
     ``evaluate.py`` (fp32) and ``interpolate.py`` (the YAML's bf16) make it
     (``JAX_HD_PLAN``);
   * ``families``: the fp32 frame of IFRNet, DAT-TPU, the dilated +
-    group-offset DAT-TPU and DCNDAT (``chip_smoke.FAMILIES``, at full width
-    from their YAMLs) at t = 0.5 on the held-out scene
+    group-offset DAT-TPU, DCNDAT and DCNTrans v1 (``chip_smoke.FAMILIES``,
+    at full width from their YAMLs) at t = 0.5 on the held-out scene
     ``chip_smoke.FAMILY_SCENE``, with the parameters
     ``chip_smoke.seeded_family_state`` draws, written by the port's
     checkpoint writer and read by flax: its PSNR against the scene's true

@@ -5,7 +5,7 @@ A tiny DCNDAT (nf 16, one encoder and one decoder block) on 64x64 frames
 scale 0.05, written by the port's checkpoint writer and read by JAX (no
 flax ``init`` runs). Every JAX call is jitted once and shared: one fp32
 ``value_and_grad`` of the training loss, whose aux carries the frame and
-the intermediates, and one bf16 forward.
+the intermediates, and one bf16 forward, the two compiled side by side.
 
 Tolerances:
   * fp32, the frame and every intermediate (``feat_t_3``, ``feat_t_4``,
@@ -34,7 +34,7 @@ import pytest
 import torch
 from flax import serialization as fser
 
-from torch_tiny import run_in, smooth_pair, write_tiny_checkpoint
+from torch_tiny import compile_side_by_side, run_in, smooth_pair, write_tiny_checkpoint
 from videoframeinterpolation_tpu.config import Config as JaxConfig
 from videoframeinterpolation_tpu.models import create_model as jax_create_model
 from videoframeinterpolation_tpu.models.dcndat import DCNDAT as JaxDCNDAT
@@ -94,9 +94,11 @@ def tiny(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def jax_fp32(tiny):
-    """JAX's fp32 training loss (``train/step.py``'s DCNDAT branch), its
-    gradient, and in its aux the log, the frame and the intermediates."""
+def jax_calls(tiny):
+    """JAX's two calls on the tiny model, compiled side by side: the fp32
+    training loss (``train/step.py``'s DCNDAT branch) with its gradient,
+    the log, the frame and the intermediates in its aux; and the bf16
+    forward."""
     _, params, batch = tiny
     model = JaxDCNDAT(**KW)
 
@@ -106,7 +108,17 @@ def jax_fp32(tiny):
                                      distill_lambda=TINY.distill_lambda)
         return total, (log, pred, inter)
 
-    (_, aux), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params, batch)
+    x = [batch[k] for k in ("x0", "x1", "t")]
+    return compile_side_by_side((jax.value_and_grad(loss_fn, has_aux=True), (params, batch)),
+                                (JaxDCNDAT(**KW, dtype=jnp.bfloat16).apply, (params, *x)))
+
+
+@pytest.fixture(scope="module")
+def jax_fp32(tiny, jax_calls):
+    """JAX's fp32 loss, in its aux the log, the frame and the
+    intermediates, and its gradient."""
+    _, params, batch = tiny
+    (_, aux), grads = jax_calls[0](params, batch)
     return jax.tree_util.tree_map(np.asarray, aux), grads
 
 
@@ -140,11 +152,11 @@ def test_forward_and_intermediates_match_jax_in_fp32(tiny, jax_fp32):
     assert min(np.abs(f).max() for f in ref_inter["flows0"]) > 0.05
 
 
-def test_forward_in_bf16_within_half_of_jaxs_own_gap(tiny, jax_fp32):
+def test_forward_in_bf16_within_half_of_jaxs_own_gap(tiny, jax_calls, jax_fp32):
     ckpt, params, batch = tiny
     (_, ref32, _), _ = jax_fp32
     x = [batch[k] for k in ("x0", "x1", "t")]
-    ref16 = np.asarray(jax.jit(JaxDCNDAT(**KW, dtype=jnp.bfloat16).apply)(params, *x))
+    ref16 = np.asarray(jax_calls[1](params, *x))
     model = _port(ckpt, "bfloat16")
     assert model.dtype == torch.bfloat16
     with torch.no_grad():

@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_tiny import jax_init, perturbed, run_in, smooth_pair
+from torch_tiny import compile_side_by_side, jax_init, perturbed, run_in, smooth_pair
 from videoframeinterpolation_tpu.config import Config as JaxConfig
 from videoframeinterpolation_tpu.models.ifrnet import IFRNet as JaxIFRNet
 from videoframeinterpolation_tpu.models.ifrnet import _Decoder as JaxDecoder
@@ -78,12 +78,21 @@ def init():
 
 
 @pytest.fixture(scope="module")
-def jax_apply():
+def jax_apply(params):
     """The JAX model's jitted forward in bf16, and in fp32 with its
     intermediates (``train=True``, whose frame is the ``train=False`` one),
-    shared by the tests of this file (each compiles once per shape)."""
-    fp32 = jax.jit(lambda p, x0, x1, t: JaxIFRNet(channels=CH).apply(p, x0, x1, t, train=True))
-    return {torch.float32: fp32, torch.bfloat16: jax.jit(JaxIFRNet(channels=CH).clone(dtype=jnp.bfloat16).apply)}
+    at the tests' ``(B, H, W)`` frames, and the value and gradient of its
+    training loss (``train/step.py``'s recipe) on a batch of them, compiled
+    side by side and shared by the tests of this file."""
+    batch = _batch()
+    x = (batch["x0"], batch["x1"], batch["t"])
+    loss_fn = jax_make_loss_fn(JaxIFRNet(channels=CH), JaxConfig(model_name="IFRNet"))
+    fp32, bf16, loss = compile_side_by_side(
+        (lambda p, x0, x1, t: JaxIFRNet(channels=CH).apply(p, x0, x1, t, train=True),
+         (params, *x)),
+        (JaxIFRNet(channels=CH).clone(dtype=jnp.bfloat16).apply, (params, *x)),
+        (jax.value_and_grad(loss_fn, has_aux=True), (params, batch)))
+    return {torch.float32: fp32, torch.bfloat16: bf16, "loss": loss}
 
 
 @pytest.fixture(scope="module")
@@ -197,11 +206,9 @@ def test_forward_in_bf16_within_half_of_jaxs_own_gap(params, jax_apply):
     assert gap > 0 and err <= BF16_GAP_SHARE * gap
 
 
-def test_loss_terms_and_gradients_match_jax(params):
+def test_loss_terms_and_gradients_match_jax(params, jax_apply):
     batch = _batch(seed=6)
-    jcfg = JaxConfig(model_name="IFRNet")
-    loss_fn = jax_make_loss_fn(JaxIFRNet(channels=CH), jcfg)
-    (_, ref_log), ref_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params, batch)
+    (_, ref_log), ref_grads = jax_apply["loss"](params, batch)
     model = _port(params)
     total, log = make_loss_fn(model, Config(model_name="IFRNet"))(
         {k: torch.from_numpy(v) for k, v in batch.items()})

@@ -46,7 +46,7 @@ def _rand(rng, *shape, scale=1.0):
 
 def _check_loss(pfn, jfn, pred, *rest):
     """Value and gradient (with respect to ``pred``) of a scalar loss."""
-    ref, ref_grad = jax.value_and_grad(jfn)(pred, *rest)
+    ref, ref_grad = jax.jit(jax.value_and_grad(jfn))(pred, *rest)
     p = torch.from_numpy(pred).requires_grad_()
     out = pfn(p, *(torch.from_numpy(r) for r in rest))
     out.backward()
@@ -125,8 +125,8 @@ def test_dat_loss_matches_jax(distill_lambda):
     def jfn(pred, inter):
         return jax_dat_loss(pred, inter, batch, distill_lambda)
 
-    (jtotal, jlog), (jg_pred, jg_inter) = jax.value_and_grad(jfn, argnums=(0, 1), has_aux=True)(
-        pred, inter)
+    (jtotal, jlog), (jg_pred, jg_inter) = jax.jit(
+        jax.value_and_grad(jfn, argnums=(0, 1), has_aux=True))(pred, inter)
     tp = torch.from_numpy(pred).requires_grad_()
     tinter = {k: [torch.from_numpy(a).requires_grad_() for a in v] for k, v in inter.items()}
     total, log = dat_loss(tp, tinter, {k: torch.from_numpy(v) for k, v in batch.items()},

@@ -110,7 +110,7 @@ def _compare_module(jax_module, port_module, inputs, seed, tol=BLOCK_TOL, noise=
 def test_bwarp_matches_jax():
     rng = np.random.default_rng(0)
     img, flow = _rand(rng, 2, 9, 11, 4), _rand(rng, 2, 9, 11, 2, scale=4.0)
-    _close(pops.bwarp(_t(img), _t(flow)), jops.bwarp(img, flow), OP_TOL)
+    _close(pops.bwarp(_t(img), _t(flow)), jax.jit(jops.bwarp)(img, flow), OP_TOL)
 
 
 @pytest.mark.parametrize("scale", [2.0, 0.5])
@@ -139,7 +139,7 @@ def test_deform_conv2d_matches_jax():
     mask = rng.uniform(0, 1, (B, H, W, G, 9)).astype(np.float32)
     weight = _rand(rng, G, 9, Cin // G, Cout // G, scale=0.3)
     bias = _rand(rng, Cout)
-    ref = jops.deform_conv2d(x, offset, mask, weight, bias)
+    ref = jax.jit(jops.deform_conv2d)(x, offset, mask, weight, bias)
     out = pops.deform_conv2d(_t(x), _t(offset), _t(mask), _t(weight), _t(bias))
     _close(out, ref, OP_TOL)
 
@@ -279,7 +279,7 @@ def test_cross_deformable_attention_block_matches_jax(shared_offsets, pred_res_f
 def _ff_params(seed=0):
     x = jnp.zeros((1, 2, 2, 6))
     return jax.tree_util.tree_map(np.asarray,
-                                  jnn.FeedForward(12, 6).init(jax.random.key(seed), x))
+                                  jax.jit(jnn.FeedForward(12, 6).init)(jax.random.key(seed), x))
 
 
 def test_params_from_flax_rejects_leftover_leaf():

@@ -73,8 +73,8 @@ def _port(feat, flow, residual, G):
 def test_deformable_sample_matches_jax_grouped_sampler(name):
     B2, H, W, G, S, C, sc, mag, seed = CASES[name]
     feat, flow, residual = _case(*CASES[name])
-    ref = jax_grouped_sample(jnp.asarray(feat),
-                             jnp.asarray(residual + flow[:, :, :, None, None, :]), G)
+    ref = jax.jit(jax_grouped_sample, static_argnums=2)(
+        feat, residual + flow[:, :, :, None, None, :], G)
     out = _port(feat, flow, residual, G)
     assert out.shape == (B2, S, H * W, C)
     np.testing.assert_allclose(out, np.asarray(ref), rtol=0, atol=TOL)

@@ -28,6 +28,7 @@ Tolerances:
     parameter, each normalised by its fp32 max abs, floored as above.
 """
 
+import concurrent.futures
 import dataclasses
 from pathlib import Path
 
@@ -79,10 +80,10 @@ def _batch(B=2, H=32, W=32, seed=0):
             "f1x": (rng.standard_normal((B, H, W, 2)) * 0.02).astype(np.float32)}
 
 
-def _init(module, key):
-    """``module``'s flax initialisation from ``key`` at one 32x32 pair."""
+def _init_args(key):
+    """The arguments of a flax initialisation from ``key`` at one 32x32 pair."""
     batch = _batch(B=1)
-    return jax.jit(module.init)(jax.random.key(key), batch["x0"], batch["x1"], batch["t"])
+    return jax.random.key(key), batch["x0"], batch["x1"], batch["t"]
 
 
 def _perturbed(params, seed):
@@ -91,32 +92,56 @@ def _perturbed(params, seed):
         lambda a: np.asarray(a) + rng.normal(0, 0.05, a.shape).astype(np.float32), params)
 
 
-@pytest.fixture(scope="module")
-def student_init():
-    """The student's flax initialisation from key 0, compiled once for the
-    tests that read it."""
-    return _init(JaxDAT(**KW), 0)
-
-
-@pytest.fixture(scope="module")
-def setup(student_init):
-    batch = _batch()
-    params = _perturbed(student_init, 2)
-    t_params = _perturbed(_init(JaxDAT(**TEACHER_KW), 1), 3)
-    return batch, params, t_params
-
-
-def _jax_distill(batch, params, t_params, dtype):
+def _distill_loss(dtype):
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else None
     loss_fn = jax_distill_loss_fn(JaxDAT(**KW, dtype=jdt), JaxDAT(**TEACHER_KW, dtype=jdt),
                                   JaxConfig(model_name="DATwConstantnCv1", nf=16), 1.0)
-    (_, log), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params, t_params, batch)
+    return jax.value_and_grad(loss_fn, has_aux=True)
+
+
+@pytest.fixture(scope="module")
+def jax_calls():
+    """The jitted JAX calls of this file: the student's flax initialisation
+    from key 0 and the teacher's from key 1 (their values), and, traced
+    against their parameters' shapes while those compile, the student's
+    ``train=True`` forward and the distillation loss's value and gradient
+    in fp32 and in bf16, each compiled in a thread of its own."""
+    x0, x1, t = (_batch()[k] for k in ("x0", "x1", "t"))
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+        inits = [jax.jit(JaxDAT(**kw).init).lower(*_init_args(key))
+                 for kw, key in ((KW, 0), (TEACHER_KW, 1))]
+        compiled = [pool.submit(low.compile) for low in inits]
+        params, t_params = (low.out_info for low in inits)
+        for fn, args in ((lambda p: JaxDAT(**KW).apply(p, x0, x1, t, train=True), (params,)),
+                         (_distill_loss(torch.float32), (params, t_params, _batch())),
+                         (_distill_loss(torch.bfloat16), (params, t_params, _batch()))):
+            compiled.append(pool.submit(jax.jit(fn).lower(*args).compile))
+        init, t_init, fwd, fp32, bf16 = (c.result() for c in compiled)
+    return {"inits": [init(*_init_args(0)), t_init(*_init_args(1))], "forward": fwd,
+            torch.float32: fp32, torch.bfloat16: bf16}
+
+
+@pytest.fixture(scope="module")
+def student_init(jax_calls):
+    return jax_calls["inits"][0]
+
+
+@pytest.fixture(scope="module")
+def setup(jax_calls):
+    batch = _batch()
+    params = _perturbed(jax_calls["inits"][0], 2)
+    t_params = _perturbed(jax_calls["inits"][1], 3)
+    return batch, params, t_params
+
+
+def _jax_distill(jax_calls, batch, params, t_params, dtype):
+    (_, log), grads = jax_calls[dtype](params, t_params, batch)
     return {k: float(v) for k, v in log.items()}, grads
 
 
 @pytest.fixture(scope="module")
-def jax_fp32(setup):
-    return _jax_distill(*setup, torch.float32)
+def jax_fp32(setup, jax_calls):
+    return _jax_distill(jax_calls, *setup, torch.float32)
 
 
 def _port_distill(batch, params, t_params, dtype):
@@ -131,10 +156,10 @@ def _port_distill(batch, params, t_params, dtype):
     return model, {k: v.item() for k, v in log.items()}
 
 
-def test_train_intermediates_match_jax(setup):
+def test_train_intermediates_match_jax(setup, jax_calls):
     batch, params, _ = setup
     x0, x1, t = batch["x0"], batch["x1"], batch["t"]
-    ref_pred, ref_inter = jax.jit(lambda p: JaxDAT(**KW).apply(p, x0, x1, t, train=True))(params)
+    ref_pred, ref_inter = jax_calls["forward"](params)
     model = DATwConstantnC(**KW)
     model.load_state_dict(params_from_flax(params, model))
     with torch.no_grad():
@@ -166,9 +191,9 @@ def test_distill_loss_and_every_gradient_match_jax_in_fp32(setup, jax_fp32):
     print(f"fp32 gradients: largest error {worst:.3e} of the (floored) max abs")
 
 
-def test_distill_gradients_in_bf16_against_jaxs_own_gap(setup, jax_fp32):
+def test_distill_gradients_in_bf16_against_jaxs_own_gap(setup, jax_calls, jax_fp32):
     ref32_log, ref32 = jax_fp32
-    ref16_log, ref16 = _jax_distill(*setup, torch.bfloat16)
+    ref16_log, ref16 = _jax_distill(jax_calls, *setup, torch.bfloat16)
     model, log = _port_distill(*setup, torch.bfloat16)
     loss_gap = abs(ref16_log["total_loss"] - ref32_log["total_loss"])
     assert abs(log["total_loss"] - ref16_log["total_loss"]) <= 0.5 * loss_gap

@@ -81,6 +81,21 @@ def jax_init(module, *args, **kwargs):
         jax.random.key(0, impl="unsafe_rbg"), *args, **kwargs)
 
 
+def compile_side_by_side(*calls):
+    """``(fn, args)`` pairs jitted and lowered in turn (tracing holds the
+    interpreter lock), each compiled in a thread of its own as soon as it
+    is lowered (XLA compiles outside the lock, beside the next tracing):
+    the compiled calls, each taking arguments of the shapes and types it
+    was lowered with."""
+    import concurrent.futures
+
+    import jax
+
+    with concurrent.futures.ThreadPoolExecutor(len(calls)) as pool:
+        futures = [pool.submit(jax.jit(fn).lower(*args).compile) for fn, args in calls]
+        return [f.result() for f in futures]
+
+
 def perturbed(tree, seed: int, scale: float = 0.05):
     """``tree`` (flax variables) plus seeded normal noise, as float32 numpy:
     offsets, masks and flows that initialise to zero become non-zero."""

@@ -22,9 +22,9 @@ the JAX CLI); ``synthetic`` scores 64 held-out scenes of the procedural
 generator at 256x448 with the config's seed. ``--tile N`` tiles frames
 larger than N pixels with a per-pair, flow-sized overlap
 (:func:`..parallel.spatial.make_flow_aware_tiled`); smaller frames run
-whole. IFRNet and DCNDAT cannot be tiled (they return no ``pred_ft0`` flow
-pyramid to size the overlap): ``--tile`` with either fails before the model
-runs.
+whole. IFRNet, DCNDAT and DCNTrans cannot be tiled (they return no
+``pred_ft0`` flow pyramid to size the overlap): ``--tile`` with any of them
+fails before the model runs.
 ``--window_sampling`` sets the config's ``window_sampling``, as the JAX
 CLI does; it is the same function with the same parameters, so the port
 runs the same kernel and gives the same scores.

@@ -11,9 +11,11 @@ becomes the key ``a.b.weight``. Layout rules are those of
   * ConvTranspose (kh, kw, I, O) -> ConvTranspose2d (I, O, kh, kw), with the
     spatial flip undone (flax applies the kernel unflipped to the dilated
     input, torch flips it);
-  * Dense (I, O) -> Linear (O, I);
+  * Dense (I, O) -> Linear (O, I), with or without a bias (the Swin
+    blocks' ``merge`` has none);
   * every other leaf (PReLU ``alpha``, the DCN's grouped ``weight`` and
-    ``bias``, conv biases) is copied as is.
+    ``bias``, conv biases, LayerNorm ``scale`` and ``bias``, the Swin
+    attention's ``relative_position_bias_table``) is copied as is.
 
 Which rule applies is read from the module that owns the parameter. Every
 leaf must be consumed and every parameter of the model filled, each with

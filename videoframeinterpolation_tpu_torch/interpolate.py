@@ -40,12 +40,14 @@ is written as ``%06d.png`` (``%06d.npy`` for ``.npy`` frames).
 defaults to its committed checkpoint, or a YAML file of any ported model
 (``configs/IFRNet.yaml``, ``configs/DAT_TPU.yaml``, ...), which needs
 ``--ckpt``: a flax msgpack checkpoint of the config's architecture, such as
-the port's trainer writes. IFRNet and DCNDAT return no ``pred_ft0`` flow
-pyramid to size the tiles' overlap, so ``--tile`` with either fails before
-the model runs. (The JAX CLI's probe finds no ``pred_ft0`` either; it
-warns and tiles with a guessed 32-px overlap, which may seam where the
-motion is larger.) Neither has the staged ``encode``/``decode`` API that
-``--mode direct`` runs, so direct mode refuses them too.
+the port's trainer writes. IFRNet, DCNDAT and DCNTrans return no
+``pred_ft0`` flow pyramid to size the tiles' overlap, so ``--tile`` with
+any of them fails before the model runs. (The JAX CLI's probe finds no
+``pred_ft0`` either; it warns and tiles with a guessed 32-px overlap,
+which may seam where the motion is larger.) None has the staged
+``encode``/``decode`` API that ``--mode direct`` runs, so direct mode
+refuses them too. DCNTrans v1 does not read ``t``: every instant of a
+pair gives the same frame, as in JAX.
 ``--window_sampling`` sets the config's ``window_sampling``, as the JAX
 CLI does: the same function with the same parameters, which the port
 computes with the same kernel, so the frames are the same.
@@ -140,8 +142,8 @@ def _train_apply(m, a, b, t, train):
 def _check_tileable(model: torch.nn.Module) -> None:
     """Flow-aware tiling sizes the overlap from the model's ``train=True``
     flow pyramids (``pred_ft0``), which only the DAT family returns
-    (IFRNet and DCNDAT return ``flows0``): refuse any other model rather
-    than guess the overlap."""
+    (IFRNet and DCNDAT return ``flows0``, DCNTrans its offset flows):
+    refuse any other model rather than guess the overlap."""
     if not isinstance(model, CoarseToFineDAT):
         raise ValueError(f"--tile needs a model that returns its flow pyramid (pred_ft0), "
                          f"which sizes the tiles' overlap; {type(model).__name__} returns "

@@ -1,11 +1,13 @@
 """Model registry (counterpart of ``videoframeinterpolation_tpu/models/__init__.py``).
 
 Ported: the flagship ``DATwConstantnC`` (alias ``DATwConstantnCv1``),
-``IFRNet``, ``DATwConstantnCTPU`` and ``DCNDAT`` (alias ``DCNDATv1``), each
-built from a ``Config`` as the JAX registry builds it
-(``videoframeinterpolation_tpu/models/__init__.py:39-102``); the other
-archive families are not ported yet. ``compute_dtype`` maps as in the
-JAX registry (``videoframeinterpolation_tpu/models/__init__.py:32-36``).
+``IFRNet``, ``DATwConstantnCTPU``, ``DCNDAT`` (alias ``DCNDATv1``) and
+``DCNTrans`` (alias ``DCNTransv1``), each built from a ``Config`` as the
+JAX registry builds it (``videoframeinterpolation_tpu/models/__init__.py:39-102``).
+``DCNTransFwarp`` (alias ``DCNTransv2``) raises, as it needs the forward
+warp; the other archive families are not ported yet. ``compute_dtype``
+maps as in the JAX registry
+(``videoframeinterpolation_tpu/models/__init__.py:32-36``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from .base import multi_t_apply
 from .dat import CoarseToFineDAT, DATwConstantnC, dat_loss
 from .dat_tpu import DATwConstantnCTPU, dat_tpu_loss
 from .dcndat import DCNDAT, dcndat_loss
+from .dcntrans import DCNTrans, dcntrans_loss
 from .ifrnet import IFRNet, ifrnet_loss
 
 
@@ -46,6 +49,17 @@ def _dcndat(c: Config, dtype: torch.dtype) -> DCNDAT:
                   mlp_ratio=c.mlp_ratio, compute_dtype=dtype)
 
 
+def _dcntrans(c: Config, dtype: torch.dtype) -> DCNTrans:
+    return DCNTrans(nf=c.nf, enc_res_blocks=c.enc_res_blocks, dec_res_blocks=c.dec_res_blocks,
+                    mlp_ratio=c.mlp_ratio, compute_dtype=dtype)
+
+
+def _dcntrans_fwarp(c: Config, dtype: torch.dtype) -> nn.Module:
+    raise ValueError(f"{c.model_name} (DCNTrans v2) builds its query with the forward warp, "
+                     "which the port does not have yet (ROADMAP.md, queue 1 item 9c); "
+                     "DCNTrans v1 is model_name DCNTrans or DCNTransv1")
+
+
 def _ifrnet(c: Config, dtype: torch.dtype) -> IFRNet:
     # As in JAX, the widths are IFRNet's own, not the config's ``channels``.
     return IFRNet(compute_dtype=dtype)
@@ -53,7 +67,8 @@ def _ifrnet(c: Config, dtype: torch.dtype) -> IFRNet:
 
 MODEL_REGISTRY = {"DATwConstantnC": _dat, "DATwConstantnCv1": _dat,
                   "DATwConstantnCTPU": _dat_tpu, "IFRNet": _ifrnet, "DCNDAT": _dcndat,
-                  "DCNDATv1": _dcndat}
+                  "DCNDATv1": _dcndat, "DCNTrans": _dcntrans, "DCNTransv1": _dcntrans,
+                  "DCNTransFwarp": _dcntrans_fwarp, "DCNTransv2": _dcntrans_fwarp}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -84,6 +99,6 @@ def create_model(cfg: Config, params_dtype: torch.dtype | None = None) -> nn.Mod
     return build(cfg, dtype).to(params_dtype or dtype)
 
 
-__all__ = ["CoarseToFineDAT", "DATwConstantnC", "DATwConstantnCTPU", "DCNDAT", "IFRNet",
-           "compute_dtype", "create_model", "dat_loss", "dat_tpu_loss", "dcndat_loss",
-           "ifrnet_loss", "multi_t_apply", "MODEL_REGISTRY"]
+__all__ = ["CoarseToFineDAT", "DATwConstantnC", "DATwConstantnCTPU", "DCNDAT", "DCNTrans",
+           "IFRNet", "compute_dtype", "create_model", "dat_loss", "dat_tpu_loss", "dcndat_loss",
+           "dcntrans_loss", "ifrnet_loss", "multi_t_apply", "MODEL_REGISTRY"]

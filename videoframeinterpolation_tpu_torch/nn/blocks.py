@@ -59,6 +59,13 @@ def zero_init(w: torch.Tensor, fan_in: int) -> None:
     nn.init.zeros_(w)
 
 
+def trunc_normal_02(w: torch.Tensor, fan_in: int = 0) -> None:
+    """flax's ``truncated_normal(stddev=0.02)``: ``N(0, 0.02)`` truncated at
+    two standard deviations, with no correction of the spread (the Swin
+    layers' kernels and relative position tables)."""
+    nn.init.trunc_normal_(w, 0.0, 0.02, -0.04, 0.04)
+
+
 Init = Callable[[torch.Tensor, int], None]
 
 
@@ -70,7 +77,8 @@ class _Initialised:
 
     def reset_parameters(self) -> None:
         self.kernel_init(self.weight, _fan_in(self))
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
 
 class Conv2d(_Initialised, nn.Conv2d):
@@ -100,10 +108,58 @@ class ConvTranspose2d(_Initialised, nn.ConvTranspose2d):
 
 
 class Dense(_Initialised, nn.Linear):
-    """``nn.Linear`` over the last axis, bias added after the product."""
+    """``nn.Linear`` over the last axis, bias (if any) added after the product."""
+
+    def __init__(self, *args, kernel_init: Init = torch_conv_init, **kwargs):
+        self.kernel_init = kernel_init
+        super().__init__(*args, **kwargs)
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The product without its bias, in ``x``'s dtype."""
+        return F.linear(x, self.weight.to(x.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+        y = self.product(x)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+class Float32Params:
+    """A module whose own parameters stay fp32 when the model is cast to
+    another dtype (``create_model(cfg)`` for a bf16 model), as flax keeps a
+    parameter that its layer uses in fp32 whatever the compute dtype (the
+    Swin attention's position bias table, :class:`LayerNorm`'s scale and
+    bias). A move to another device still moves them."""
+
+    def _apply(self, fn, recurse=True):
+        own = {n: p.data for n, p in self.named_parameters(recurse=False)}
+        super()._apply(fn, recurse)
+        for n, p in self.named_parameters(recurse=False):
+            if p.dtype != torch.float32:
+                p.data = own[n].to(device=p.device, dtype=torch.float32)
+        return self
+
+
+class LayerNorm(Float32Params, nn.Module):
+    """flax's ``nn.LayerNorm`` over the last axis (``torch.nn.LayerNorm``
+    computes another function): epsilon 1e-6; the statistics taken in fp32
+    from any input dtype, the variance in the fast form ``max(0, E[x^2] -
+    E[x]^2)``; ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in fp32,
+    rounded to the input's dtype once. ``scale`` starts at one and
+    ``bias`` at zero, both fp32."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = (x32 * x32).mean(dim=-1, keepdim=True) - mean * mean
+        var = torch.maximum(var, var.new_zeros(()))
+        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.scale.float()) + self.bias.float()
+        return y.to(x.dtype)
 
 
 class PReLU(nn.Module):

@@ -12,8 +12,10 @@ warm-up, and prints the device kernels by total time, the device
 operations per request, the deformable sampler's share, the plain
 deformable convolution's share (``ops/dcn.py:deform_conv2d``: the device
 time of the kernels its calls launch, each call traced inside a
-``record_function`` range that only this tool opens) and the device's
-busy share of the traced wall time. Needs a CUDA device.
+``record_function`` range that only this tool opens), the Swin decoders'
+share (``nn/swin.py:SwinDecoder``, DCNTrans's two decoders, traced the
+same way) and the device's busy share of the traced wall time. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -31,9 +33,11 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..config import PRESETS
 from ..interpolate import config_and_ckpt, load_model
+from ..nn.swin import SwinDecoder
 from ..ops import dcn
 
 DCN_RANGE = "deform_conv2d"
+SWIN_RANGE = "swin_decoder"
 
 
 @contextlib.contextmanager
@@ -55,6 +59,31 @@ def traced_as(fn, name: str):
     finally:
         for m, attr in held:
             setattr(m, attr, fn)
+
+
+@contextlib.contextmanager
+def traced_forward(cls, name: str):
+    """While open, every call of ``cls``'s ``forward`` runs inside
+    ``record_function(name)``."""
+    forward = cls.forward
+
+    def traced(self, *args, **kwargs):
+        with record_function(name):
+            return forward(self, *args, **kwargs)
+
+    cls.forward = traced
+    try:
+        yield
+    finally:
+        cls.forward = forward
+
+
+def _range_ms(prof, name: str) -> tuple[int, float]:
+    """The calls traced in host range ``name`` and the device time (ms) of
+    the kernels launched inside them."""
+    calls = [e for e in prof.events()
+             if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
+    return len(calls), sum(e.device_time_total for e in calls) / 1e3
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -89,7 +118,7 @@ def main(argv: list[str] | None = None) -> dict:
         end.record()
         torch.cuda.synchronize()
         frame_ms = start.elapsed_time(end) / 20
-        with (traced_as(dcn.deform_conv2d, DCN_RANGE),
+        with (traced_as(dcn.deform_conv2d, DCN_RANGE), traced_forward(SwinDecoder, SWIN_RANGE),
               profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof):
             start = time.perf_counter()
             for _ in range(args.requests):
@@ -99,12 +128,11 @@ def main(argv: list[str] | None = None) -> dict:
 
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
-               and e.key != DCN_RANGE]
+               and e.key not in (DCN_RANGE, SWIN_RANGE)]
     # Each traced call's range on the host: the device time of the kernels
     # launched inside it.
-    dcn_calls = [e for e in prof.events()
-                 if e.name == DCN_RANGE and e.device_type == torch.autograd.DeviceType.CPU]
-    dcn_ms = sum(e.device_time_total for e in dcn_calls) / 1e3
+    dcn_calls, dcn_ms = _range_ms(prof, DCN_RANGE)
+    swin_calls, swin_ms = _range_ms(prof, SWIN_RANGE)
     kernels.sort(key=lambda e: e.device_time_total, reverse=True)
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     rows = [{"kernel": e.key[:120], "calls_per_request": e.count / args.requests,
@@ -125,9 +153,12 @@ def main(argv: list[str] | None = None) -> dict:
         "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
         "sampler_ms_per_request": sum(r["ms_per_request"] for r in sampler),
         "sampler_share_of_busy": sum(r["share"] for r in sampler),
-        "dcn_calls_per_request": len(dcn_calls) / args.requests,
+        "dcn_calls_per_request": dcn_calls / args.requests,
         "dcn_ms_per_request": dcn_ms / args.requests,
         "dcn_share_of_busy": dcn_ms / busy_ms if busy_ms else 0.0,
+        "swin_calls_per_request": swin_calls / args.requests,
+        "swin_ms_per_request": swin_ms / args.requests,
+        "swin_share_of_busy": swin_ms / busy_ms if busy_ms else 0.0,
         "top": rows[:args.top],
     }
     for r in rows[:args.top]:

@@ -6,7 +6,8 @@ runs them eagerly, one step per call of :func:`train_step`; a batch is a
 dict of tensors on the model's device (``x0``, ``x1``, ``xt``, ``t`` and,
 for flow distillation, ``f0x``, ``f1x``). :func:`make_loss_fn` has the
 recipes of the DAT family (the flagship and DAT-TPU: ``dat_loss``), of
-IFRNet (``ifrnet_loss``) and of DCNDAT (``dcndat_loss``); :func:`make_distill_loss_fn` adds the teacher
+IFRNet (``ifrnet_loss``), of DCNDAT (``dcndat_loss``) and of DCNTrans
+(``dcntrans_loss``); :func:`make_distill_loss_fn` adds the teacher
 term to the DAT family's. The log keys are JAX's. ``model`` may be wrapped in
 ``DistributedDataParallel`` (:mod:`..parallel.ddp`): the loss calls the
 wrapper, which averages the gradients over the processes.
@@ -21,6 +22,7 @@ import torch
 from ..config import Config
 from ..models.dat import CoarseToFineDAT, dat_loss
 from ..models.dcndat import DCNDAT, dcndat_loss
+from ..models.dcntrans import DCNTrans, dcntrans_loss
 from ..models.ifrnet import IFRNet, ifrnet_loss
 from ..ops import charbonnier_l1
 from .state import TrainState
@@ -35,8 +37,8 @@ def _unwrapped(model: torch.nn.Module) -> torch.nn.Module:
 
 def make_loss_fn(model: torch.nn.Module, cfg: Config) -> LossFn:
     """``loss_fn(batch) -> (loss, log)`` of the model's own recipe. For
-    IFRNet and DCNDAT the geometry loss encodes the mean-normalised ground
-    truth with the model's own encoder; IFRNet reads ``distill_lambda:
+    IFRNet, DCNDAT and DCNTrans the geometry loss encodes the
+    mean-normalised ground truth with the model's own encoder; IFRNet reads ``distill_lambda:
     null`` as 0, DCNDAT leaves a ``null`` lambda's term out (as JAX's
     ``train/step.py:106-116`` do)."""
     inner = _unwrapped(model)
@@ -66,6 +68,15 @@ def make_loss_fn(model: torch.nn.Module, cfg: Config) -> LossFn:
             gt_feats = inner.encode(batch["xt"] - inter["mean"])
             return dcndat_loss(pred, inter, batch, gt_feats, geo_lambda=cfg.geo_lambda,
                                distill_lambda=cfg.distill_lambda)
+
+        return loss_fn
+
+    if isinstance(inner, DCNTrans):
+
+        def loss_fn(batch):
+            pred, inter = model(batch["x0"], batch["x1"], batch["t"], train=True)
+            gt_feats = inner.encode(batch["xt"] - inter["mean"])
+            return dcntrans_loss(pred, inter, batch, gt_feats)
 
         return loss_fn
 
