@@ -128,8 +128,9 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      point (``python -m videoframeinterpolation_tpu_torch.train``'s
      ``main``, in a child process: ``python3 chip_smoke.py --child``) on a
      seeded Vimeo90K-layout tree (``TRAINER_TREE``: 96 training triplets
-     with their true flows and 8 test triplets at 256x448, rendered in
-     worker processes) with ``configs/DAT_fast_distill.yaml`` and the
+     with their true flows, those from t and those between the frames that
+     phase 15's IFRNet and GMTrans read, and 8 test triplets at 256x448,
+     rendered in worker processes) with ``configs/DAT_fast_distill.yaml`` and the
      committed teacher. Run A: the YAML's recipe at full width, batch 12,
      crop 256, bf16, 8 data workers, for 2 epochs of 8 steps, its cadences
      cut (``RUN_A``) and ``PROFILE_STEPS`` traced: per step 3 student
@@ -147,13 +148,14 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      sums ``grad_feat`` in a varying order; C and C2 run beside B).
      ``evaluate --exp_name`` on the card
      in fp32 within 0.005 dB and 5e-5 SSIM of the same on the CPU;
- 15. families (runs after 14, on its tree): IFRNet, DAT-TPU, DCNDAT and
-     DCNTrans v1 from ``configs/IFRNet.yaml``, ``configs/DAT_TPU.yaml``,
-     ``configs/archive/DCNDAT.yaml`` and ``configs/archive/DCNTrans.yaml``
-     at full width, and the quality study's
-     dilated + group-offset DAT-TPU, each with a TrainState drawn with numpy
-     from ``FAMILY_SEED`` (``seeded_family_state``, DCNTrans's kernels at
-     ``FAMILY_KERNEL_GAIN``; no checkpoint of any family is committed).
+ 15. families (runs after 14, on its tree): IFRNet, DAT-TPU, DCNDAT,
+     DCNTrans v1 and GMTrans from ``configs/IFRNet.yaml``,
+     ``configs/DAT_TPU.yaml`` and ``configs/archive/{DCNDAT,DCNTrans,
+     GMTrans}.yaml`` at full width, and the quality study's dilated +
+     group-offset DAT-TPU, each with a TrainState drawn with numpy from
+     ``FAMILY_SEED`` (``seeded_family_state``: DCNTrans's kernels at
+     ``FAMILY_KERNEL_GAIN``, GMTrans's LayerNorm scales at
+     ``FAMILY_NORM_SCALE``; no checkpoint of any family is committed).
      (a) Each written by the port's checkpoint writer and served through
      ``load_model`` in the YAML's bf16: four 448x256 requests through
      ``interp_pair``, ``FAMILY_LAUNCHES`` bf16 sampler launches each
@@ -162,16 +164,19 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      ``FAMILY_SCENE`` within 0.005 dB (PSNR against its true middle frame)
      and 1e-4 (its mean) of the JAX package's CPU fp32 read
      (``JAX_FAMILIES``); ms per frame in bf16 and fp32; device operations
-     per request, busy share, and the deformable convolution's and the
-     Swin decoders' shares (``tools/profile_serve.py``). (b) One fp32
+     per request, busy share, and the shares of the deformable
+     convolution, the Swin decoders, GMTrans's two splat merges (which
+     must record device time) and its feature transformer with the
+     correlation (``tools/profile_serve.py``). (b) One fp32
      training step of each (its own recipe, TF32 off, batch 2 at 128x128)
      card against CPU to phase 10 (a)'s limits, with ``FAMILY_LAUNCHES``
      forward and backward launches; the production trainer's
-     CLI with each YAML at its recipe (IFRNet batch 6, crop 224, with the
-     forward flows written for its 48 sequences; DAT-TPU and DCNDAT batch
+     CLI with each YAML at its recipe (IFRNet batch 6, crop 224, on the
+     tree's first 48 sequences, and GMTrans batch 12, crop 224, both on
+     the forward flows phase 14's tree carries; DAT-TPU and DCNDAT batch
      12, crop 256; DCNTrans batch 8, crop 224, on the tree's first 64
-     sequences; DCNDAT and DCNTrans on ``Vimeo90KwFlow``) for one epoch of
-     8 steps,
+     sequences; DCNDAT, DCNTrans and GMTrans on ``Vimeo90KwFlow``) for one
+     epoch of 8 steps, the families in turn in one child process,
      ``RUN_FAMILY``'s cadences and ``FAMILY_PROFILE_STEPS`` traced: ms per
      step, ``data_time`` share, peak memory, busy share,
      ``FAMILY_LAUNCHES`` launches per step, backward step, validation batch
@@ -217,6 +222,17 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      of a backward launch that ``BACKWARD_CASES`` or ``STRIDED_CASES`` does
      not list, on its planned path.
 
+ 17. splat (runs after 2): the forward warp (``ops/softsplat.py``,
+     ``ops/warp.py``; plain PyTorch, as the JAX package computes it in
+     XLA) on the card against its CPU twin at GMTrans's served shapes
+     (``SPLAT_SHAPES``: its 1/8 features and the 448x256 frame) on flows
+     that collide and leave the frame: ``softsplat_raw``, the four modes
+     and ``fwarp_using_two_frames``, in fp32 within ``SPLAT_TOL`` of each
+     output's max abs with equal hole masks, in bf16 measured; two calls
+     on the card equal bit for bit; the fp32 gradients for values, flow
+     and metric within ``SPLAT_TOL`` of each one's max abs and equal over
+     two calls; ms per merge.
+
 Each path's sampler launches (forward and backward) are counted from 0
 just before it runs and read just after; the kernels line gives them per
 path, and the backward's also per backward path; the strided launches of
@@ -244,6 +260,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import multiprocessing
 import os
@@ -402,23 +419,31 @@ PROFILE_STEPS = (5, 7)
 # then resumed from 'latest'.
 RUN_BC = ["num_epochs=1", "num_workers=1", "metric_summary_freq=1", "save_latest_freq=1000",
           "save_every_freq_epoch=1", "val_datasets=[]"]
+# Phase 17 (splat): the forward warp at GMTrans's served shapes (its 1/8
+# features and the 448x256 frame, B 1), on flows that collide and leave the
+# frame; fp32 card against CPU within SPLAT_TOL of each output's (and each
+# gradient's) max abs.
+SPLAT_SHAPES = {"features_1_8": (1, 32, 56, 128), "frame": (1, 256, 448, 3)}
+SPLAT_MODES = ("sum", "avg", "linear", "soft")
+SPLAT_TOL = 1e-5
 SIGTERM_AT_STEP = 5
 DATA_TIMED_ITEMS = 48   # training items timed on the host, per data path
 RENDER_WORKERS = min(8, os.cpu_count() or 1)   # render_pool's worker processes
-# Phase 15 (families): IFRNet, DAT-TPU, DCNDAT and DCNTrans v1 from their
-# YAMLs at full width, and the quality study's dilated + group-offset DAT-TPU
-# (head_to_head's OFFSET_SETS and OFFSET_GROUPS). No checkpoint of any family
+# Phase 15 (families): IFRNet, DAT-TPU, DCNDAT, DCNTrans v1 and GMTrans from
+# their YAMLs at full width, and the quality study's dilated + group-offset
+# DAT-TPU (head_to_head's OFFSET_SETS and OFFSET_GROUPS). No checkpoint of any family
 # is committed: each TrainState is drawn with numpy from FAMILY_SEED
 # (seeded_family_state) at step FAMILY_STEP, the same on every machine.
 FAMILIES = {"IFRNet": "configs/IFRNet.yaml", "DAT_TPU": "configs/DAT_TPU.yaml",
             "DAT_TPU_dilated_goff": "configs/DAT_TPU.yaml",
             "DCNDAT": "configs/archive/DCNDAT.yaml",
-            "DCNTrans": "configs/archive/DCNTrans.yaml"}
+            "DCNTrans": "configs/archive/DCNTrans.yaml",
+            "GMTrans": "configs/archive/GMTrans.yaml"}
 # Sampler launches per forward (and, in training, backward launches per
 # step) of each family: DCNDAT's three levels each sample both frames in one
 # launch; the others launch none.
 FAMILY_LAUNCHES = {"IFRNet": 0, "DAT_TPU": 0, "DAT_TPU_dilated_goff": 0, "DCNDAT": 3,
-                   "DCNTrans": 0}
+                   "DCNTrans": 0, "GMTrans": 0}
 FAMILY_SEED = 15
 FAMILY_STEP = 1000
 # The factor on each family's U(+-1/sqrt(fan_in)) kernels (default 1). At
@@ -427,6 +452,15 @@ FAMILY_STEP = 1000
 # device can hold it to half of that gap; at half the bound it moves by
 # 0.06 (the port on the CPU).
 FAMILY_KERNEL_GAIN = {"DCNTrans": 0.5}
+# The factor on each family's LayerNorm scales (default 1; drawn 1 + N(0,
+# 0.02)). At 1 GMTrans's bf16 frame at 448x256 is chaotic at every kernel
+# gain (it moves by 0.50-0.95 of its gap when its input moves by 1e-6): its
+# 1/8 flows are softmax-weighted averages of the pixel grid over a nearly
+# flat correlation of features whose common part (the LayerNorms' messages,
+# twelve deep) dwarfs their spread, rounded to bf16 (0.25 px at 40 px) and
+# magnified 8x. At 0.03 the messages no longer drown the encoder's content
+# and the move is 0.08 (the port on the CPU, tests/bf16_spread.py).
+FAMILY_NORM_SCALE = {"GMTrans": 0.03}
 # The held-out SyntheticMotion scene each family serves: (size, seed), index 0.
 FAMILY_SCENE = ((256, 448), 16)
 # The JAX package's CPU fp32 read of each family's frame on FAMILY_SCENE at
@@ -437,20 +471,24 @@ JAX_FAMILIES = {"IFRNet": (34.58601270023546, 0.48564809877938214),
                 "DAT_TPU": (19.298734448338216, 0.5239750224028241),
                 "DAT_TPU_dilated_goff": (19.246799060622894, 0.5084678643933807),
                 "DCNDAT": (19.49973414223694, 0.4963412535387414),
-                "DCNTrans": (19.837724593649583, 0.49248217925291793)}
+                "DCNTrans": (19.837724593649583, 0.49248217925291793),
+                "GMTrans": (18.732246574821716, 0.5022372869089373)}
 FAMILY_MEAN_TOL = 1e-4
 # The production trainer on phase 14's tree at each YAML's recipe (IFRNet
-# batch 6, crop 224, with the forward flows written for its sequences;
-# DAT-TPU and DCNDAT batch 12, crop 256; DCNTrans batch 8, crop 224), for
-# one epoch of 8 steps: the training sequences each reads (a family that
-# reads fewer than the tree's 96 gets a root beside it that lists its
-# first ones), its cadences cut, the traced steps.
-# configs/archive/DCNDAT.yaml and DCNTrans.yaml name data_name Vimeo90K,
-# whose batches carry no flows for their flow distillation: their runs read
-# them (Vimeo90KwFlow, with the YAML's flow_dir and distill_bwd).
-FAMILY_TRAIN_SEQUENCES = {"IFRNet": 48, "DAT_TPU": 96, "DCNDAT": 96, "DCNTrans": 64}
+# batch 6, crop 224, and GMTrans batch 12, crop 224, with the forward flows
+# written for their sequences; DAT-TPU and DCNDAT batch 12, crop 256;
+# DCNTrans batch 8, crop 224), for one epoch of 8 steps: the training
+# sequences each reads (a family that reads fewer than the tree's 96 gets a
+# root beside it that lists its first ones), its cadences cut, the traced
+# steps. configs/archive/DCNDAT.yaml, DCNTrans.yaml and GMTrans.yaml name
+# data_name Vimeo90K, whose batches carry no flows for their flow
+# distillation: their runs read them (Vimeo90KwFlow, with the YAML's
+# flow_dir and distill_bwd).
+FAMILY_TRAIN_SEQUENCES = {"IFRNet": 48, "DAT_TPU": 96, "DCNDAT": 96, "DCNTrans": 64,
+                          "GMTrans": 96}
 FAMILY_TRAIN_SETS = {"DCNDAT": ["data_name=Vimeo90KwFlow"],
-                     "DCNTrans": ["data_name=Vimeo90KwFlow"]}
+                     "DCNTrans": ["data_name=Vimeo90KwFlow"],
+                     "GMTrans": ["data_name=Vimeo90KwFlow"]}
 RUN_FAMILY = ["num_epochs=1", "save_latest_freq=4", "save_every_freq_epoch=1",
               "valid_freq_epoch=1", "img_summary_freq=8", "metric_summary_freq=1"]
 FAMILY_PROFILE_STEPS = (5, 6)
@@ -794,6 +832,9 @@ def main() -> int:
         del x, idx, out
         check_row_gather(gen, gather_probe.SHAPES)
         bwd_err = check_backward(gen)
+    with Phase("splat"):
+        check_splat(card)
+
     # From here on, every level shape a path launches the sampler at is
     # recorded; phase 13 holds those that phase 2 did not.
     launched_shapes, launched_backward = record_level_shapes(window_sample)
@@ -1109,6 +1150,119 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def splat_inputs(shape: tuple, seed: int) -> dict:
+    """Phase 17's inputs at ``shape (B, H, W, C)``, made with numpy from
+    ``seed``: two frames' values, flows of a few pixels around a shared
+    drift of 3 px (so that taps collide), a block of each far outside the
+    frame and a row on whole pixels, importance metrics (positive, as the
+    ``linear`` mode's normaliser needs), the instants 0.3 and 0.7, and a
+    cotangent."""
+    B, H, W, C = shape
+    rng = np.random.default_rng(seed)
+    x0, x1 = (rng.normal(size=shape) for _ in range(2))
+    f0, f1 = (rng.normal(0, 2.0, (B, H, W, 2)) + 3.0 for _ in range(2))
+    f0[:, : H // 8, : W // 8] = (W + 5.0, -7.0)
+    f1[:, -H // 8:, -W // 8:] = (-(W + 9.0), 2.0)
+    f0[:, H // 2] = np.round(f0[:, H // 2])
+    m0, m1 = (np.abs(rng.normal(0, 3.0, (B, H, W, 1))) for _ in range(2))
+    t0 = np.full((B, 1, 1, 1), 0.3)
+    arrays = {"x0": x0, "flow0": f0, "t0": t0, "x1": x1, "flow1": f1, "t1": 1.0 - t0,
+              "metric0": m0, "metric1": m1, "ct": rng.normal(size=shape)}
+    return {k: torch.from_numpy(v.astype(np.float32)) for k, v in arrays.items()}
+
+
+def splat_outputs(a: dict) -> dict:
+    """Every forward-warp output phase 17 holds, from inputs ``a`` (on one
+    device, in one dtype): ``softsplat_raw``, ``softsplat`` in each of
+    ``SPLAT_MODES`` and ``fwarp_using_two_frames``'s frame and hole mask."""
+    from videoframeinterpolation_tpu_torch.ops import (fwarp_using_two_frames, softsplat,
+                                                       softsplat_raw)
+
+    out = {"softsplat_raw": softsplat_raw(a["x0"], a["flow0"])}
+    for mode in SPLAT_MODES:
+        metric = a["metric0"] if mode in ("linear", "soft") else None
+        out[f"softsplat_{mode}"] = softsplat(a["x0"], a["flow0"], metric, mode)
+    out["two_frames"], out["holes"] = fwarp_using_two_frames(
+        *(a[k] for k in ("x0", "flow0", "t0", "x1", "flow1", "t1", "metric0", "metric1")))
+    return out
+
+
+def splat_grads(a: dict) -> dict:
+    """The fp32 gradients of ``fwarp_using_two_frames``'s frame against
+    ``a["ct"]`` for frame 0's values, flow and metric."""
+    from videoframeinterpolation_tpu_torch.ops import fwarp_using_two_frames
+
+    leaves = {k: a[k].detach().clone().requires_grad_(True) for k in ("x0", "flow0", "metric0")}
+    frame, _ = fwarp_using_two_frames(leaves["x0"], leaves["flow0"], a["t0"], a["x1"],
+                                      a["flow1"], a["t1"], leaves["metric0"], a["metric1"])
+    (frame * a["ct"]).sum().backward()
+    return {k: v.grad for k, v in leaves.items()}
+
+
+def check_splat(card: str) -> None:
+    """Phase 17: the forward warp (``ops/softsplat.py``, ``ops/warp.py``,
+    plain PyTorch: the JAX package computes it in XLA, not in a Pallas
+    kernel) on the card against its CPU twin at ``SPLAT_SHAPES``: in fp32
+    every output within ``SPLAT_TOL`` of its max abs and the hole masks
+    equal; in bf16 the difference measured (the card sums each target's
+    updates in fp32 and rounds once, the CPU rounds every add); two calls
+    on the card equal bit for bit in both dtypes; the fp32 gradients for
+    values, flow and metric within ``SPLAT_TOL`` of each one's max abs,
+    and equal over two calls; ms per call of ``fwarp_using_two_frames``
+    on the card."""
+    from videoframeinterpolation_tpu_torch.ops import fwarp_using_two_frames
+    from videoframeinterpolation_tpu_torch.tools.perf import timing
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    for seed, (name, shape) in enumerate(SPLAT_SHAPES.items()):
+        inputs = splat_inputs(shape, seed)
+        for dtype in (torch.float32, torch.bfloat16):
+            cpu_in = {k: v.to(dtype) for k, v in inputs.items()}
+            card_in = {k: v.cuda() for k, v in cpu_in.items()}
+            with torch.no_grad():
+                cpu = splat_outputs(cpu_in)
+                first, again = splat_outputs(card_in), splat_outputs(card_in)
+            torch.cuda.synchronize()
+            rows = {}
+            for key, ref in cpu.items():
+                got = first[key].cpu()
+                if key == "holes":
+                    rows[key] = {"equal": torch.equal(got, ref), "holes": int(ref.sum())}
+                    continue
+                err = (got.float() - ref.float()).abs()
+                scale = ref.float().abs().max().item()
+                rows[key] = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+                             "max_abs": scale, "unequal_share": (got != ref).float().mean().item()}
+            repeat = {k: torch.equal(first[k], again[k]) for k in first}
+            with torch.no_grad():
+                ms = timing.loop_ms(lambda: fwarp_using_two_frames(
+                    *(card_in[k] for k in ("x0", "flow0", "t0", "x1", "flow1", "t1", "metric0",
+                                           "metric1"))), 20, warmup=3) / 20
+            emit({"splat": name, "shape": list(shape), "dtype": str(dtype), "card_vs_cpu": rows,
+                  "two_calls_equal": repeat, "fwarp_using_two_frames_ms": ms, "card": card})
+            bad = [k for k, r in rows.items() if k != "holes" and dtype == torch.float32
+                   and not r["max_abs_err"] <= SPLAT_TOL * r["max_abs"]]
+            if bad or not all(repeat.values()) or (dtype == torch.float32
+                                                   and not rows["holes"]["equal"]):
+                raise AssertionError(f"splat {name} {dtype}: outside {SPLAT_TOL} of max abs "
+                                     f"{bad}, two calls equal {repeat}, holes {rows['holes']}")
+            if not all(torch.isfinite(first[k]).all() for k in first if k != "holes"):
+                raise AssertionError(f"splat {name} {dtype}: non-finite output on the card")
+        cpu_grads = splat_grads(inputs)
+        card_in = {k: v.cuda() for k, v in inputs.items()}
+        card_grads, again = splat_grads(card_in), splat_grads(card_in)
+        rows = {k: {"max_abs_err": (card_grads[k].cpu() - g).abs().max().item(),
+                    "max_abs": g.abs().max().item(),
+                    "two_calls_equal": torch.equal(card_grads[k], again[k])}
+                for k, g in cpu_grads.items()}
+        emit({"splat": name, "fp32_gradients_card_vs_cpu": rows})
+        if not all(r["max_abs"] > 0 and r["max_abs_err"] <= SPLAT_TOL * r["max_abs"]
+                   and r["two_calls_equal"] for r in rows.values()):
+            raise AssertionError(f"splat {name}: fp32 gradients card vs CPU {rows}")
+    torch.set_num_threads(threads)
 
 
 def serve_requests(model, requests, tex, shift, name: str) -> None:
@@ -1806,9 +1960,7 @@ def check_train(card: str, path_launches: dict) -> dict:
                 / torch.cat([g.flatten() for g in cpu["grads"].values()]).norm()).item()
 
     grad_err = whole(on_card["grads"])
-    state_err = {part: float(max(np.abs(on_card["tree"][k] - v).max()
-                                 for k, v in cpu["tree"].items() if k.startswith(part)))
-                 for part in ("params/", "opt_state/0/mu/", "opt_state/0/nu/")}
+    state_err = state_errors(on_card["tree"], cpu["tree"])
     emit({"train_step_fp32_card_vs_cpu": {
         "loss_card": on_card["loss"], "loss_cpu": cpu["loss"], "loss_rel_err": loss_err,
         "grad_rel_l2_err": grad_err,
@@ -1908,8 +2060,20 @@ def _write_train_sequence(args):
     """One training sequence of phase 14's tree (run in a worker process)."""
     from videoframeinterpolation_tpu_torch.tools import fixtures
 
-    root, index, hw, seed = args
-    fixtures.write_vimeo90k_train_sequence(root, index, hw, seed)
+    fixtures.write_vimeo90k_train_sequence(*args)
+
+
+def forward_flow_dir() -> str:
+    """The ``flow_dir`` under which the phase-15 families whose YAMLs read
+    forward flows (``distill_bwd: false``: IFRNet, GMTrans) read them; phase
+    14's tree carries them there for every training sequence."""
+    from videoframeinterpolation_tpu_torch.config import Config
+
+    cfgs = [Config.from_yaml(ROOT / FAMILIES[name]) for name in FAMILY_TRAIN_SEQUENCES]
+    dirs = {cfg.flow_dir for cfg in cfgs if not cfg.distill_bwd}
+    if len(dirs) != 1:
+        raise AssertionError(f"forward flows under {sorted(dirs)}: expected one flow_dir")
+    return dirs.pop()
 
 
 _render_pool = None
@@ -1937,55 +2101,80 @@ def stop_render_pool() -> None:
 
 
 def child(kind: str, out: str, argv: list[str]) -> int:
-    """``python3 chip_smoke.py --child train|evaluate OUT -- ARGS``: run the
-    train or the evaluation entry point's ``main(ARGS)`` in this process,
-    with the sampler's level shapes recorded and its counts set to 0 just
-    before, and write to OUT what it gave: the launches (the teacher's
-    forwards counted around each of its calls), the steps, peak memory and
-    the profile summary of a training run; the scores of an evaluation."""
+    """``python3 chip_smoke.py --child train|train_runs|evaluate OUT -- ARGS``:
+    run the train or the evaluation entry point's ``main(ARGS)`` in this
+    process, with the sampler's level shapes recorded and its counts set to
+    0 just before, and write to OUT what it gave: the launches (the
+    teacher's forwards counted around each of its calls), the steps, peak
+    memory, seconds and the profile summary of a training run; the scores
+    of an evaluation. ``train_runs`` reads OUT as a JSON list of ``[out,
+    ARGS]`` pairs and runs each training in turn in this one process, each
+    written to its own ``out`` (one process start and one profiler start-up
+    for them all)."""
     sys.path.insert(0, str(ROOT))
     from videoframeinterpolation_tpu_torch.kernels import window_sample
-    from videoframeinterpolation_tpu_torch.kernels.window_sample import deformable_sample
 
     forward, backward = record_level_shapes(window_sample)
-    result = {}
     if kind == "evaluate":
         from videoframeinterpolation_tpu_torch import evaluate
 
-        result["scores"] = evaluate.main(argv)
-    elif kind == "train":
-        from videoframeinterpolation_tpu_torch.train import __main__ as cli
-        from videoframeinterpolation_tpu_torch.train import trainer as trainer_mod
-
-        teacher_launches = [0]
-        trainer_mod.make_distill_loss_fn = counting_teacher_launches(
-            trainer_mod.make_distill_loss_fn, teacher_launches)
-        # The launches of validation and image summaries, read around them.
-        outside = {"validate": 0, "_log_images": 0}
-        for name in outside:
-            def counted(self, *args, _name=name, _fn=getattr(trainer_mod.Trainer, name)):
-                before = deformable_sample.launches
-                out = _fn(self, *args)
-                outside[_name] += deformable_sample.launches - before
-                return out
-
-            setattr(trainer_mod.Trainer, name, counted)
-        reset_sampler_counts()
-        torch.cuda.reset_peak_memory_stats()
-        trainer = cli.main(argv)
-        torch.cuda.synchronize()
-        result.update(
-            steps=trainer.state.step, launches=deformable_sample.launches,
-            bf16_launches=deformable_sample.bf16_launches,
-            teacher_launches=teacher_launches[0], validation_launches=outside["validate"],
-            image_launches=outside["_log_images"], backward_launches=deformable_sample.backward_launches,
-            backward_path_launches=dict(deformable_sample.backward_path_launches),
-            peak_memory_bytes=torch.cuda.max_memory_allocated(), profile=trainer.profile)
+        runs = [(out, {"scores": evaluate.main(argv)})]
+    elif kind in ("train", "train_runs"):
+        counters = count_trainer_launches()
+        pairs = [(out, argv)] if kind == "train" else json.loads(Path(out).read_text())
+        runs = [(run_out, train_run(run_argv, counters)) for run_out, run_argv in pairs]
     else:
         raise SystemExit(f"unknown child {kind!r}")
-    result.update(forward_shapes=sorted(forward), backward_shapes=sorted(backward))
-    Path(out).write_text(json.dumps(result))
+    for run_out, result in runs:
+        result.update(forward_shapes=sorted(forward), backward_shapes=sorted(backward))
+        Path(run_out).write_text(json.dumps(result))
     return 0
+
+
+def count_trainer_launches() -> dict:
+    """Wrap the trainer so that the teacher's forwards and the launches of
+    validation and image summaries are counted; returns the counters."""
+    from videoframeinterpolation_tpu_torch.kernels.window_sample import deformable_sample
+    from videoframeinterpolation_tpu_torch.train import trainer as trainer_mod
+
+    counters = {"teacher": [0], "validate": 0, "_log_images": 0}
+    trainer_mod.make_distill_loss_fn = counting_teacher_launches(
+        trainer_mod.make_distill_loss_fn, counters["teacher"])
+    for name in ("validate", "_log_images"):
+        def counted(self, *args, _name=name, _fn=getattr(trainer_mod.Trainer, name)):
+            before = deformable_sample.launches
+            out = _fn(self, *args)
+            counters[_name] += deformable_sample.launches - before
+            return out
+
+        setattr(trainer_mod.Trainer, name, counted)
+    return counters
+
+
+def train_run(argv: list[str], counters: dict) -> dict:
+    """One run of the train entry point's ``main(argv)`` in this process
+    (see :func:`child`), its counts (``counters`` from
+    :func:`count_trainer_launches`) and peak memory from 0."""
+    from videoframeinterpolation_tpu_torch.kernels.window_sample import deformable_sample
+    from videoframeinterpolation_tpu_torch.train import __main__ as cli
+
+    counters["teacher"][0] = counters["validate"] = counters["_log_images"] = 0
+    gc.collect()            # the previous run's trainer, so that its memory is free
+    torch.cuda.empty_cache()
+    reset_sampler_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    return dict(
+        steps=trainer.state.step, launches=deformable_sample.launches,
+        bf16_launches=deformable_sample.bf16_launches,
+        teacher_launches=counters["teacher"][0], validation_launches=counters["validate"],
+        image_launches=counters["_log_images"],
+        backward_launches=deformable_sample.backward_launches,
+        backward_path_launches=dict(deformable_sample.backward_path_launches),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(), profile=trainer.profile,
+        seconds=round(time.perf_counter() - start, 3))
 
 
 def start_child(kind: str, out: Path, argv: list[str], cwd: Path,
@@ -2051,10 +2240,13 @@ def check_trainer(tmp: Path, card: str, path_launches: dict, launched: set,
     start = time.perf_counter()
     pool = render_pool()
     test = pool.submit(_write_fixture, ("vimeo90k", tmp, [hw] * n_test, seed))
-    list(pool.map(_write_train_sequence, [(root, i, hw, seed) for i in range(n_train)]))
+    flow_dir = forward_flow_dir()
+    list(pool.map(_write_train_sequence,
+                  [(root, i, hw, seed, flow_dir) for i in range(n_train)]))
     test.result()
     fixtures.write_vimeo90k_trainlist(root, n_train)
     emit({"trainer_tree": {"train": n_train, "test": n_test, "hw": list(hw),
+                           "forward_flows": flow_dir,
                            "workers": RENDER_WORKERS,
                            "seconds": round(time.perf_counter() - start, 3)}})
     # The data path on this host, one thread: ms per training item (three
@@ -2255,10 +2447,11 @@ def seeded_family_state(name: str):
     """``(config, TrainState)`` of family ``name`` (:func:`seeded_state` of
     its config and ``FAMILY_SEED``)."""
     cfg = family_config(name)
-    return cfg, seeded_state(cfg, FAMILY_SEED, FAMILY_KERNEL_GAIN.get(name, 1.0))
+    return cfg, seeded_state(cfg, FAMILY_SEED, FAMILY_KERNEL_GAIN.get(name, 1.0),
+                             FAMILY_NORM_SCALE.get(name, 1.0))
 
 
-def seeded_state(cfg, seed: int, kernel_gain: float = 1.0):
+def seeded_state(cfg, seed: int, kernel_gain: float = 1.0, norm_scale: float = 1.0):
     """The TrainState of ``cfg``'s model at full width on the CPU, fp32,
     with every parameter and moment drawn with numpy from ``seed`` in the
     order of the parameters' sorted names: kernels
@@ -2268,7 +2461,8 @@ def seeded_state(cfg, seed: int, kernel_gain: float = 1.0):
     ``N(0, 0.02)``, PReLU slopes ``0.25 + N(0, 0.02)``; the Swin layers'
     kernels and relative position bias tables ``N(0, 0.02)`` (the spread
     of their ``truncated_normal(0.02)`` init), LayerNorm scales ``1 +
-    N(0, 0.02)``; ``mu`` ``N(0,
+    N(0, 0.02)`` times ``norm_scale``, GMTrans's ``alpha`` ``10 + N(0,
+    0.02)``; ``mu`` ``N(0,
     1e-4)`` and ``nu`` ``U(1e-8, 1e-6)``, the moments of a run in progress,
     so that a gradient that is zero in exact arithmetic (the key
     projections' biases: the softmax ignores a shift shared by every tap)
@@ -2285,10 +2479,12 @@ def seeded_state(cfg, seed: int, kernel_gain: float = 1.0):
     with torch.no_grad():
         for key, p in sorted(model.named_parameters()):
             owner, _, leaf = key.rpartition(".")
-            if leaf == "alpha":
+            if leaf == "alpha" and not owner:
+                value = 10.0 + rng.normal(0, 0.02, p.shape)     # GMTrans's metric scale
+            elif leaf == "alpha":
                 value = 0.25 + rng.normal(0, 0.02, p.shape)
             elif leaf == "scale":
-                value = 1.0 + rng.normal(0, 0.02, p.shape)
+                value = (1.0 + rng.normal(0, 0.02, p.shape)) * norm_scale
             elif leaf in ("bias", "relative_position_bias_table") or (
                     getattr(modules[owner], "kernel_init", None) is trunc_normal_02):
                 value = rng.normal(0, 0.02, p.shape)
@@ -2386,17 +2582,20 @@ def serve_seeded(name: str, yaml: Path, tree, ckpt: Path, card: str, path_launch
     hold_fp32_frame(model32, name, reference, card, model)
     del model, model32
     torch.cuda.empty_cache()
+    start = time.perf_counter()
     summary = profile_serve.main(["--config", str(yaml), "--ckpt", str(ckpt), "--requests", "5"])
     emit({"model": name, "profile_serve": {k: v for k, v in summary.items() if k != "top"},
-          "top_device_ops": summary["top"][:8]})
+          "top_device_ops": summary["top"][:8],
+          "profile_serve_seconds": round(time.perf_counter() - start, 3)})
     if not summary["device_busy_ms_per_request"] > 0:
         raise AssertionError(f"{name}: the profile shows no device time: {summary}")
-    if summary["dcn_calls_per_request"] and not summary["dcn_ms_per_request"] > 0:
-        raise AssertionError(f"{name}: the profile gives the deformable convolution's "
-                             f"{summary['dcn_calls_per_request']} calls no device time")
-    if summary["swin_calls_per_request"] and not summary["swin_ms_per_request"] > 0:
-        raise AssertionError(f"{name}: the profile gives the Swin decoders' "
-                             f"{summary['swin_calls_per_request']} calls no device time")
+    for part in profile_serve.RANGES:
+        if summary[f"{part}_calls_per_request"] and not summary[f"{part}_ms_per_request"] > 0:
+            raise AssertionError(f"{name}: the profile gives the {part} range's "
+                                 f"{summary[f'{part}_calls_per_request']} calls no device time")
+    if name == "GMTrans" and summary["splat_calls_per_request"] != 2:
+        raise AssertionError(f"GMTrans: {summary['splat_calls_per_request']} traced splat "
+                             "merges per request; expected 2")
 
 
 def family_step_card_vs_cpu(ckpt: Path, name: str) -> dict:
@@ -2449,9 +2648,7 @@ def step_card_vs_cpu(cfg32, tree, name: str) -> dict:
     keys = sorted(cpu["grads"])
     grad_err = (torch.cat([(on_card["grads"][k] - cpu["grads"][k]).flatten() for k in keys]).norm()
                 / torch.cat([cpu["grads"][k].flatten() for k in keys]).norm()).item()
-    state_err = {part: float(max(np.abs(on_card["tree"][k] - v).max()
-                                 for k, v in cpu["tree"].items() if k.startswith(part)))
-                 for part in ("params/", "opt_state/0/mu/", "opt_state/0/nu/")}
+    state_err = state_errors(on_card["tree"], cpu["tree"])
     emit({"model": name, "train_step_fp32_card_vs_cpu": {
         "loss_card": on_card["loss"], "loss_cpu": cpu["loss"], "loss_rel_err": loss_err,
         "grad_rel_l2_err": grad_err, "state_max_abs_err": state_err, "launches": launches,
@@ -2463,22 +2660,33 @@ def step_card_vs_cpu(cfg32, tree, name: str) -> dict:
     return launches
 
 
-def _write_forward_flows(args):
-    """One training sequence's forward flows (run in a worker process)."""
-    from videoframeinterpolation_tpu_torch.tools import fixtures
-
-    fixtures.write_vimeo90k_forward_flows(*args)
+def state_errors(on_card: dict, cpu: dict) -> dict:
+    """The largest absolute difference of the parameters and of AdamW's
+    moments between two flattened TrainStates (``_leaves``), wherever the
+    optimizer chain puts the moments (after ``grad_clip``'s empty state
+    when the config clips)."""
+    parts = {"params": lambda k: k.startswith("params/"), "mu": lambda k: "/mu/" in k,
+             "nu": lambda k: "/nu/" in k}
+    errs = {}
+    for part, held in parts.items():
+        diffs = [np.abs(on_card[k] - v).max() for k, v in cpu.items() if held(k)]
+        if not diffs:
+            raise AssertionError(f"no {part} leaf in the TrainState: {sorted(cpu)[:5]}")
+        errs[part] = float(max(diffs))
+    return errs
 
 
 def train_families(tmp: Path, card: str, path_launches: dict, launched: set,
                    launched_backward: set) -> None:
     """Phase 15 (b), second part: the production trainer's CLI with each
-    YAML at its recipe on phase 14's tree (``FAMILY_TRAIN_SEQUENCES``; for
-    IFRNet a root beside it listing its first 48 sequences, with their
-    forward flows written under the YAML's ``flow_dir``; for DCNTrans one
-    listing its first 64), for one epoch of 8
-    steps with ``RUN_FAMILY``'s cadences (and ``FAMILY_TRAIN_SETS``),
-    ``FAMILY_PROFILE_STEPS`` traced; ms per step, the ``data_time`` share,
+    YAML at its recipe on phase 14's tree (``FAMILY_TRAIN_SEQUENCES``,
+    IFRNet and GMTrans reading the forward flows the tree carries; for a
+    family that reads fewer sequences than the tree has, IFRNet's 48 and
+    DCNTrans's 64, a root beside it listing its first ones), for one epoch
+    of 8 steps with ``RUN_FAMILY``'s
+    cadences (and ``FAMILY_TRAIN_SETS``), ``FAMILY_PROFILE_STEPS`` traced,
+    the families one after another in one child process; ms per step, the
+    seconds of each run, the ``data_time`` share,
     peak memory, the busy share; ``FAMILY_LAUNCHES`` sampler launches per
     training step, backward step, validation batch and image summary, all
     in bf16; ``latest``, ``epoch_001`` and ``best_vimeo90k`` restore
@@ -2492,46 +2700,38 @@ def train_families(tmp: Path, card: str, path_launches: dict, launched: set,
                                                          state_from_flax, state_to_flax)
 
     tree = tmp / "datasets" / "vimeo_triplet"
-    hw, seed = TRAINER_TREE["hw"], TRAINER_TREE["seed"]
-    ifrnet = tmp / "datasets" / "vimeo_ifrnet"
-    if "IFRNet" in FAMILY_TRAIN_SEQUENCES:
-        ifrnet.mkdir()
-        flow_dir = Config.from_yaml(ROOT / FAMILIES["IFRNet"]).flow_dir
-        n_ifrnet = FAMILY_TRAIN_SEQUENCES["IFRNet"]
-        start = time.perf_counter()
-        list(render_pool().map(_write_forward_flows,
-                               [(ifrnet, i, hw, seed, flow_dir) for i in range(n_ifrnet)]))
-        (ifrnet / "sequences").symlink_to(tree / "sequences")
-        (ifrnet / "tri_testlist.txt").write_text((tree / "tri_testlist.txt").read_text())
-        fixtures.write_vimeo90k_trainlist(ifrnet, n_ifrnet)
-        emit({"family_forward_flows": {"sequences": n_ifrnet, "flow_dir": flow_dir,
-                                       "seconds": round(time.perf_counter() - start, 3)}})
-
-    def run(kind, name, argv, timeout=600):
-        out, log = tmp / f"{name}.json", tmp / f"{name}.log"
-        return finish_child(start_child(kind, out, argv, tmp, log), out, log, timeout)
-
     n_test = TRAINER_TREE["test"]
-    roots = {name: ifrnet if name == "IFRNet" else tree for name in FAMILY_TRAIN_SEQUENCES}
+    roots = {name: tree for name in FAMILY_TRAIN_SEQUENCES}
     for name, n in FAMILY_TRAIN_SEQUENCES.items():
-        if name != "IFRNet" and n < TRAINER_TREE["train"]:
+        if n < TRAINER_TREE["train"]:
             # A root beside the tree that lists its first n sequences.
             roots[name] = tmp / "datasets" / f"vimeo_{name}"
             roots[name].mkdir()
-            for part in ("sequences", "flow"):
+            for part in ("sequences", "flow", forward_flow_dir()):
                 (roots[name] / part).symlink_to(tree / part)
             (roots[name] / "tri_testlist.txt").write_text(
                 (tree / "tri_testlist.txt").read_text())
             fixtures.write_vimeo90k_trainlist(roots[name], n)
-    for name, root in roots.items():
+    # Every family's run in one child process, one after another: one
+    # process start and one profiler start-up (about 12 s on the card's
+    # host, paid at the first traced step of a process) for them all.
+    plan = [[str(tmp / f"family_{name}.json"),
+             ["--exp_name", f"family_{name}", "--config", str(ROOT / FAMILIES[name]),
+              "--set", f"root={root}", "--device", "cuda",
+              *_sets(RUN_FAMILY + FAMILY_TRAIN_SETS.get(name, [])),
+              "--profile_steps", ",".join(map(str, FAMILY_PROFILE_STEPS))]]
+            for name, root in roots.items()]
+    (tmp / "family_runs.json").write_text(json.dumps(plan))
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    log = tmp / "family_runs.log"
+    finish_child(start_child("train_runs", tmp / "family_runs.json", [], tmp, log),
+                 Path(plan[0][0]), log, 600 * len(plan))
+    emit({"family_trainers_child_seconds": round(time.perf_counter() - start, 3)})
+    for name in roots:
         exp_name = f"family_{name}"
-        torch.cuda.empty_cache()
-        start = time.perf_counter()
-        r = run("train", exp_name, ["--exp_name", exp_name, "--config", str(ROOT / FAMILIES[name]),
-                                    "--set", f"root={root}", "--device", "cuda",
-                                    *_sets(RUN_FAMILY + FAMILY_TRAIN_SETS.get(name, [])),
-                                    "--profile_steps", ",".join(map(str, FAMILY_PROFILE_STEPS))])
-        seconds = time.perf_counter() - start
+        r = json.loads((tmp / f"{exp_name}.json").read_text())
+        seconds = r["seconds"]
         exp = tmp / "exps" / exp_name
         cfg = Config.from_yaml(exp / "config.yaml")
         spe = FAMILY_TRAIN_SEQUENCES[name] // cfg.batch_size

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from flax import serialization as fser
 
+from torch_tiny import jax_init
 from videoframeinterpolation_tpu.config import Config as JaxConfig
 from videoframeinterpolation_tpu.models import create_model as jax_create_model
 from videoframeinterpolation_tpu.models.dat import DATwConstantnC as JaxDAT
@@ -112,7 +113,7 @@ def test_small_dat_matches_jax(shared_offsets, n_samples):
     x0, x1 = _pair(64, 64, seed=1)
     t = np.full((1, 1, 1, 1), 0.5, np.float32)
     jmodel = JaxDAT(**kw)
-    params = jax.jit(jmodel.init)(jax.random.key(0), x0, x1, t)["params"]
+    params = jax_init(jmodel, x0, x1, t)["params"]
     rng = np.random.default_rng(2)
     params = jax.tree_util.tree_map(
         lambda p: np.asarray(p) + rng.normal(0, 0.05, p.shape).astype(np.float32), params)

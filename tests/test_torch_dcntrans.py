@@ -380,14 +380,14 @@ def test_full_width_model_from_the_yaml():
     and shapes as ``jax.eval_shape`` of the JAX model's ``init``, 4,107,351
     parameters; the bias tables and LayerNorms stay fp32 in the bf16
     model. ``DCNTrans`` names the same model; ``DCNTransv2`` and
-    ``DCNTransFwarp`` (the forward warp, not ported) raise."""
+    ``DCNTransFwarp`` (``DeformableConv2dWithFwarp``, not ported) raise."""
     cfg = Config.from_yaml(YAML)
     assert cfg.model_name == "DCNTransv1"
     model = create_model(cfg, torch.float32)
     assert isinstance(model, DCNTrans) and model.dtype == torch.bfloat16
     assert isinstance(create_model(Config.from_yaml(YAML, model_name="DCNTrans")), DCNTrans)
     for name in ("DCNTransv2", "DCNTransFwarp"):
-        with pytest.raises(ValueError, match="queue 1 item 9c"):
+        with pytest.raises(ValueError, match="DeformableConv2dWithFwarp"):
             create_model(Config.from_yaml(YAML, model_name=name))
     x = np.zeros((1, 64, 64, 3), np.float32)
     jmodel = jax_create_model(JaxConfig.from_yaml(YAML))

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from torch_tiny import jax_init
 from videoframeinterpolation_tpu import nn as jnn
 from videoframeinterpolation_tpu import ops as jops
 from videoframeinterpolation_tpu.data.padder import InputPadder as JaxInputPadder
@@ -88,7 +89,7 @@ def _compare_module(jax_module, port_module, inputs, seed, tol=BLOCK_TOL, noise=
     dtype), the port's module is cast to bf16 and both get the inputs in bf16."""
     rng = np.random.default_rng(seed)
     jin = [jnp.asarray(x, jnp.bfloat16 if bf16 else None) for x in inputs]
-    params = jax.jit(jax_module.init)(jax.random.key(seed), *jin)["params"]
+    params = jax_init(jax_module, *jin)["params"]
     params = jax.tree_util.tree_map(
         lambda p: np.asarray(p) + rng.normal(0, noise, p.shape).astype(np.float32), params)
     ref = jax.jit(jax_module.apply)({"params": params}, *jin)

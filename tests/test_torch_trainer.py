@@ -55,6 +55,7 @@ from videoframeinterpolation_tpu_torch.tools import fixtures
 from videoframeinterpolation_tpu_torch.train import (PreemptionGuard, create_train_state,
                                                      state_from_flax, state_to_flax)
 from videoframeinterpolation_tpu_torch.train import checkpoint as ckpt_mod
+from videoframeinterpolation_tpu_torch.train import trainer as trainer_mod
 from videoframeinterpolation_tpu_torch.train.trainer import Trainer
 from videoframeinterpolation_tpu_torch.utils import logger as port_logger
 from videoframeinterpolation_tpu_torch.utils.flow_viz import flow_to_image
@@ -382,3 +383,54 @@ def test_jax_trainer_against_the_port(base, port_run, tmp_path):
         for k, v in b.items():
             if k.endswith("_loss") or k.endswith("_psnr"):
                 assert abs(a[k] - v) <= 1e-4 * abs(v), k
+
+
+class _Event:
+    """A stand-in for one of the profiler's raw events."""
+
+    def __init__(self, name, start_ms, end_ms, device="CUDA", annotation=False):
+        self._name, self._start, self._end = name, int(start_ms * 1e6), int(end_ms * 1e6)
+        self._device, self._annotation = getattr(torch.autograd.DeviceType, device), annotation
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return self._device
+
+    def is_user_annotation(self):
+        return self._annotation
+
+    def start_ns(self):
+        return self._start
+
+    def end_ns(self):
+        return self._end
+
+    def duration_ns(self):
+        return self._end - self._start
+
+
+def test_profile_summary_reads_the_raw_device_events():
+    """The trace's summary from the profiler's raw events: busy time is the
+    union of the device operations' intervals (two streams overlapping
+    count once), host operations and the device's range annotations are
+    no operations, and the top operations are summed by name; a trace of
+    the CPU alone has no busy share."""
+    from types import SimpleNamespace
+
+    events = [_Event("gemm", 0, 4), _Event("gemm", 10, 12), _Event("copy", 3, 6),
+              _Event("aten::mm", 0, 20, device="CPU"),
+              _Event("swin_decoder", 0, 12, annotation=True)]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    summary = trainer_mod.profile_summary(prof, wall_ms=20.0, steps=2)
+    assert summary["device_busy_ms_per_step"] == pytest.approx(4.0)
+    assert summary["busy_share"] == pytest.approx(0.4)
+    assert [(r["op"], r["calls_per_step"]) for r in summary["top"]] == [("gemm", 1.0),
+                                                                         ("copy", 0.5)]
+    assert summary["top"][0]["ms_per_step"] == pytest.approx(3.0)
+    assert sum(r["share"] for r in summary["top"]) == pytest.approx(1.0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as cpu:
+        torch.ones(4).sum()
+    assert trainer_mod.profile_summary(cpu, 1.0, 1)["busy_share"] is None

@@ -247,27 +247,18 @@ class SyntheticMotion:
             f += w * np.stack([fx, fy], axis=-1)
         return f
 
-    def frame_flows(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
-        """The true flows between item ``idx``'s two frames, ``(f01, f10)``:
-        frame 0 -> frame 1 at frame 0's pixels, and frame 1 -> frame 0 at
-        frame 1's. Derived as ``f0x`` and ``f1x`` are, from the same scene
-        (the item's generator draws its layers first), as each layer's
-        displacement between the two times weighted by the layers'
-        visibility in the frame the flow starts from, and scaled as they
-        are. So ``x1`` sampled at ``p + f01(p)`` is ``x0`` wherever the
-        surface seen at ``p`` stays visible."""
-        rng = self._item_rng(idx)
-        H, W = self.crop_hw
-        layers = self._build_scene(rng, H, W)
-        yy, xx = np.meshgrid(np.arange(H, dtype=np.float64), np.arange(W, dtype=np.float64),
-                             indexing="ij")
-        _, w0 = self._composite(layers, xx, yy, 0.0)
-        _, w1 = self._composite(layers, xx, yy, 1.0)
-        f01 = self._flow(layers, w0, xx, yy, 0.0, 1.0) * self.flow_scale
-        f10 = self._flow(layers, w1, xx, yy, 1.0, 0.0) * self.flow_scale
-        return f01.astype(np.float32), f10.astype(np.float32)
-
     def __getitem__(self, idx: int) -> dict:
+        return self.item(idx)
+
+    def item(self, idx: int, frame_flows: bool = False) -> dict:
+        """Item ``idx`` (``self[idx]``); with ``frame_flows`` also ``f01``
+        and ``f10``, the true flows between its two frames: frame 0 ->
+        frame 1 at frame 0's pixels, and frame 1 -> frame 0 at frame 1's,
+        derived as ``f0x`` and ``f1x`` are, as each layer's displacement
+        between the two times weighted by the layers' visibility in the
+        frame the flow starts from, and scaled as they are. So ``x1``
+        sampled at ``p + f01(p)`` is ``x0`` wherever the surface seen at
+        ``p`` stays visible."""
         rng = self._item_rng(idx)
         H, W = self.crop_hw
         layers = self._build_scene(rng, H, W)
@@ -282,12 +273,12 @@ class SyntheticMotion:
             np.arange(H, dtype=np.float64), np.arange(W, dtype=np.float64),
             indexing="ij",
         )
-        x0, _ = self._composite(layers, xx, yy, 0.0)
-        x1, _ = self._composite(layers, xx, yy, 1.0)
+        x0, w0 = self._composite(layers, xx, yy, 0.0)
+        x1, w1 = self._composite(layers, xx, yy, 1.0)
         xt, wt = self._composite(layers, xx, yy, t)
         f0x = self._flow(layers, wt, xx, yy, t, 0.0) * self.flow_scale
         f1x = self._flow(layers, wt, xx, yy, t, 1.0) * self.flow_scale
-        return {
+        out = {
             "x0": x0,
             "x1": x1,
             "xt": xt,
@@ -295,3 +286,9 @@ class SyntheticMotion:
             "f0x": f0x.astype(np.float32),
             "f1x": f1x.astype(np.float32),
         }
+        if frame_flows:
+            out["f01"] = (self._flow(layers, w0, xx, yy, 0.0, 1.0)
+                          * self.flow_scale).astype(np.float32)
+            out["f10"] = (self._flow(layers, w1, xx, yy, 1.0, 0.0)
+                          * self.flow_scale).astype(np.float32)
+        return out

@@ -40,14 +40,15 @@ is written as ``%06d.png`` (``%06d.npy`` for ``.npy`` frames).
 defaults to its committed checkpoint, or a YAML file of any ported model
 (``configs/IFRNet.yaml``, ``configs/DAT_TPU.yaml``, ...), which needs
 ``--ckpt``: a flax msgpack checkpoint of the config's architecture, such as
-the port's trainer writes. IFRNet, DCNDAT and DCNTrans return no
-``pred_ft0`` flow pyramid to size the tiles' overlap, so ``--tile`` with
-any of them fails before the model runs. (The JAX CLI's probe finds no
-``pred_ft0`` either; it warns and tiles with a guessed 32-px overlap,
-which may seam where the motion is larger.) None has the staged
-``encode``/``decode`` API that ``--mode direct`` runs, so direct mode
-refuses them too. DCNTrans v1 does not read ``t``: every instant of a
-pair gives the same frame, as in JAX.
+the port's trainer writes. IFRNet, DCNDAT, DCNTrans and GMTrans return
+no ``pred_ft0`` flow pyramid to size the tiles' overlap, so ``--tile``
+with any of them fails before the model runs. (The JAX CLI's probe finds
+no ``pred_ft0`` either; it warns and tiles with a guessed 32-px overlap,
+which may seam where the motion is larger.) Of those, only GMTrans has
+the staged ``encode``/``decode`` API that ``--mode direct`` runs (its
+encoder, transformer and correlation once per pair, the splats and
+decoders per instant); direct mode refuses the others. DCNTrans v1 does
+not read ``t``: every instant of a pair gives the same frame, as in JAX.
 ``--window_sampling`` sets the config's ``window_sampling``, as the JAX
 CLI does: the same function with the same parameters, which the port
 computes with the same kernel, so the frames are the same.
@@ -142,8 +143,9 @@ def _train_apply(m, a, b, t, train):
 def _check_tileable(model: torch.nn.Module) -> None:
     """Flow-aware tiling sizes the overlap from the model's ``train=True``
     flow pyramids (``pred_ft0``), which only the DAT family returns
-    (IFRNet and DCNDAT return ``flows0``, DCNTrans its offset flows):
-    refuse any other model rather than guess the overlap."""
+    (IFRNet and DCNDAT return ``flows0``, DCNTrans its offset flows,
+    GMTrans full-resolution flows): refuse any other model rather than
+    guess the overlap."""
     if not isinstance(model, CoarseToFineDAT):
         raise ValueError(f"--tile needs a model that returns its flow pyramid (pred_ft0), "
                          f"which sizes the tiles' overlap; {type(model).__name__} returns "

@@ -1,11 +1,13 @@
 """Model registry (counterpart of ``videoframeinterpolation_tpu/models/__init__.py``).
 
 Ported: the flagship ``DATwConstantnC`` (alias ``DATwConstantnCv1``),
-``IFRNet``, ``DATwConstantnCTPU``, ``DCNDAT`` (alias ``DCNDATv1``) and
-``DCNTrans`` (alias ``DCNTransv1``), each built from a ``Config`` as the
-JAX registry builds it (``videoframeinterpolation_tpu/models/__init__.py:39-102``).
-``DCNTransFwarp`` (alias ``DCNTransv2``) raises, as it needs the forward
-warp; the other archive families are not ported yet. ``compute_dtype``
+``IFRNet``, ``DATwConstantnCTPU``, ``DCNDAT`` (alias ``DCNDATv1``),
+``DCNTrans`` (alias ``DCNTransv1``) and ``GMTrans`` (alias
+``GMTransv1``), each built from a ``Config`` as the JAX registry builds
+it (``videoframeinterpolation_tpu/models/__init__.py:39-102``).
+``DCNTransFwarp`` (alias ``DCNTransv2``) raises, as it needs
+``DeformableConv2dWithFwarp``; the other archive families are not ported
+yet. ``compute_dtype``
 maps as in the JAX registry
 (``videoframeinterpolation_tpu/models/__init__.py:32-36``).
 """
@@ -21,6 +23,7 @@ from .dat import CoarseToFineDAT, DATwConstantnC, dat_loss
 from .dat_tpu import DATwConstantnCTPU, dat_tpu_loss
 from .dcndat import DCNDAT, dcndat_loss
 from .dcntrans import DCNTrans, dcntrans_loss
+from .gmtrans import GMTrans, gmtrans_loss
 from .ifrnet import IFRNet, ifrnet_loss
 
 
@@ -55,9 +58,15 @@ def _dcntrans(c: Config, dtype: torch.dtype) -> DCNTrans:
 
 
 def _dcntrans_fwarp(c: Config, dtype: torch.dtype) -> nn.Module:
-    raise ValueError(f"{c.model_name} (DCNTrans v2) builds its query with the forward warp, "
+    raise ValueError(f"{c.model_name} (DCNTrans v2) builds its query with "
+                     "DeformableConv2dWithFwarp (videoframeinterpolation_tpu/nn/dcn_layer.py:84), "
                      "which the port does not have yet (ROADMAP.md, queue 1 item 9c); "
                      "DCNTrans v1 is model_name DCNTrans or DCNTransv1")
+
+
+def _gmtrans(c: Config, dtype: torch.dtype) -> GMTrans:
+    # As in JAX, the widths are GMTrans's own, not the config's.
+    return GMTrans(compute_dtype=dtype)
 
 
 def _ifrnet(c: Config, dtype: torch.dtype) -> IFRNet:
@@ -68,7 +77,8 @@ def _ifrnet(c: Config, dtype: torch.dtype) -> IFRNet:
 MODEL_REGISTRY = {"DATwConstantnC": _dat, "DATwConstantnCv1": _dat,
                   "DATwConstantnCTPU": _dat_tpu, "IFRNet": _ifrnet, "DCNDAT": _dcndat,
                   "DCNDATv1": _dcndat, "DCNTrans": _dcntrans, "DCNTransv1": _dcntrans,
-                  "DCNTransFwarp": _dcntrans_fwarp, "DCNTransv2": _dcntrans_fwarp}
+                  "DCNTransFwarp": _dcntrans_fwarp, "DCNTransv2": _dcntrans_fwarp,
+                  "GMTrans": _gmtrans, "GMTransv1": _gmtrans}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -100,5 +110,6 @@ def create_model(cfg: Config, params_dtype: torch.dtype | None = None) -> nn.Mod
 
 
 __all__ = ["CoarseToFineDAT", "DATwConstantnC", "DATwConstantnCTPU", "DCNDAT", "DCNTrans",
-           "IFRNet", "compute_dtype", "create_model", "dat_loss", "dat_tpu_loss", "dcndat_loss",
-           "dcntrans_loss", "ifrnet_loss", "multi_t_apply", "MODEL_REGISTRY"]
+           "GMTrans", "IFRNet", "compute_dtype", "create_model", "dat_loss", "dat_tpu_loss",
+           "dcndat_loss", "dcntrans_loss", "gmtrans_loss", "ifrnet_loss", "multi_t_apply",
+           "MODEL_REGISTRY"]

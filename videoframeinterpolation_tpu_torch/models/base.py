@@ -21,10 +21,10 @@ def multi_t_apply(model, x0: torch.Tensor, x1: torch.Tensor, ts) -> torch.Tensor
 
     Counterpart of ``videoframeinterpolation_tpu/models/base.py:multi_t_apply``:
     for a model with the staged ``encode``/``decode`` API (the DAT family,
-    ``models/dat.py:CoarseToFineDAT``; IFRNet has none and raises), the
-    t-invariant encoder pyramid runs once and ``decode`` runs per instant,
-    so factor-N upsampling pays one encoder per pair instead of one per
-    output frame. Each frame equals
+    ``models/dat.py:CoarseToFineDAT``, and GMTrans; IFRNet has none and
+    raises), the t-invariant encoder pyramid runs once and ``decode`` runs
+    per instant, so factor-N upsampling pays one encoder per pair instead
+    of one per output frame. Each frame equals
     ``model(x0, x1, t)``: the same operations on the same inputs.
 
     Args:

@@ -22,7 +22,8 @@ No kernel of its own: the deformable convolutions are the plain
 the DCNs' offset flows in fp32, ``mean``), and :func:`dcntrans_loss` is
 the training loss (JAX ``models/dcntrans.py:161-191``). The model has no
 staged ``encode``/``decode`` API: :func:`.multi_t_apply` refuses it, as
-JAX's does. ``DCNTransFwarp`` (v2) needs the forward warp, not ported yet.
+JAX's does. ``DCNTransFwarp`` (v2) needs ``DeformableConv2dWithFwarp``,
+not ported yet.
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ one machine can be held against another's.
     in pixels (training scenes of the generator's training split); with a
     ``flow_dir`` also ``<flow_dir>/<seq>/flow_01.npy`` and ``flow_10.npy``,
     the true flows from frame 0 to frame 1 and back, in pixels
-    (``SyntheticMotion.frame_flows``: the same layers' displacements between
+    (``SyntheticMotion.item(..., frame_flows=True)``: the same layers' displacements between
     times 0 and 1, weighted by their visibility in the start frame), which
     IFRNet's config reads (``distill_bwd: false``);
   * UCF101: ``datasets/UCF-101/test/<n>/frame_{00,01_gt,02}.png``;
@@ -81,7 +81,8 @@ def write_vimeo90k_train_sequence(root: str | Path, index: int, hw: tuple[int, i
     with ``flow_dir``, also its true flows 0->1 and 1->0 (pixels) as
     ``<flow_dir>/<seq>/flow_01.npy`` and ``flow_10.npy``."""
     item = SyntheticMotion(crop_hw=hw, is_train=True, seed=seed, num_items=index + 1,
-                           flow_in_pixels=True, fixed_t=0.5)[index]
+                           flow_in_pixels=True, fixed_t=0.5).item(
+                               index, frame_flows=flow_dir is not None)
     root = Path(root)
     name = VIMEO_TRAIN_NAME.format(index + 1)
     for k, f in (("x0", "im1.png"), ("xt", "im2.png"), ("x1", "im3.png")):
@@ -91,20 +92,10 @@ def write_vimeo90k_train_sequence(root: str | Path, index: int, hw: tuple[int, i
     write_flo(str(flow / "flow_t0.flo"), item["f0x"])
     write_flo(str(flow / "flow_t1.flo"), item["f1x"])
     if flow_dir is not None:
-        write_vimeo90k_forward_flows(root, index, hw, seed, flow_dir)
-
-
-def write_vimeo90k_forward_flows(root: str | Path, index: int, hw: tuple[int, int], seed: int,
-                                 flow_dir: str) -> None:
-    """Training sequence ``index``'s true flows 0->1 and 1->0 (pixels), as
-    ``<flow_dir>/<seq>/flow_01.npy`` and ``flow_10.npy`` under ``root``."""
-    ds = SyntheticMotion(crop_hw=hw, is_train=True, seed=seed, num_items=index + 1,
-                         flow_in_pixels=True)
-    forward = Path(root) / flow_dir / VIMEO_TRAIN_NAME.format(index + 1)
-    forward.mkdir(parents=True, exist_ok=True)
-    f01, f10 = ds.frame_flows(index)
-    np.save(forward / "flow_01.npy", f01)
-    np.save(forward / "flow_10.npy", f10)
+        forward = root / flow_dir / name
+        forward.mkdir(parents=True, exist_ok=True)
+        np.save(forward / "flow_01.npy", item["f01"])
+        np.save(forward / "flow_10.npy", item["f10"])
 
 
 def write_vimeo90k_trainlist(root: str | Path, n_train: int) -> None:

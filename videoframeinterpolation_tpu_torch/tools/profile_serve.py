@@ -9,13 +9,15 @@ compute dtype, TF32 off, cuDNN's default algorithm choice), at B=1,
 checkpoint (default: the shipped DAT_fast student), or a YAML file of any
 ported model with ``--ckpt``. Traces ``--requests`` requests after
 warm-up, and prints the device kernels by total time, the device
-operations per request, the deformable sampler's share, the plain
-deformable convolution's share (``ops/dcn.py:deform_conv2d``: the device
-time of the kernels its calls launch, each call traced inside a
-``record_function`` range that only this tool opens), the Swin decoders'
-share (``nn/swin.py:SwinDecoder``, DCNTrans's two decoders, traced the
-same way) and the device's busy share of the traced wall time. Needs a
-CUDA device.
+operations per request, the deformable sampler's share, the device's busy
+share of the traced wall time, and the shares of four parts of the models
+(``RANGES``: the device time of the kernels their calls launch, each call
+traced inside a ``record_function`` range that only this tool opens): the
+plain deformable convolution (``ops/dcn.py:deform_conv2d``), the Swin
+decoders (``nn/swin.py:SwinDecoder``: DCNTrans's and GMTrans's two), the
+forward-warp merges (``ops/warp.py:fwarp_using_two_frames``: GMTrans's
+two splats per request) and GMTrans's feature transformer with its global
+correlation (``nn/transformer.py``). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -33,11 +35,14 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..config import PRESETS
 from ..interpolate import config_and_ckpt, load_model
+from ..nn import transformer
 from ..nn.swin import SwinDecoder
-from ..ops import dcn
+from ..ops import dcn, warp
+from ..train.trainer import device_events
 
-DCN_RANGE = "deform_conv2d"
-SWIN_RANGE = "swin_decoder"
+# The traced parts: summary key -> the record_function range's name.
+RANGES = {"dcn": "deform_conv2d", "swin": "swin_decoder", "splat": "fwarp_using_two_frames",
+          "transformer": "feature_transformer"}
 
 
 @contextlib.contextmanager
@@ -78,12 +83,27 @@ def traced_forward(cls, name: str):
         cls.forward = forward
 
 
-def _range_ms(prof, name: str) -> tuple[int, float]:
-    """The calls traced in host range ``name`` and the device time (ms) of
-    the kernels launched inside them."""
-    calls = [e for e in prof.events()
-             if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
-    return len(calls), sum(e.device_time_total for e in calls) / 1e3
+def range_device_ms(prof, names) -> dict[str, tuple[int, float]]:
+    """For each host range of ``names``: the calls traced in it and the
+    device time (ms) of the operations launched by the ops inside those
+    calls, read from the profiler's raw events (each device operation
+    carries the correlation id of the op that launched it)."""
+    events = prof.profiler.kineto_results.events()
+    host = [e for e in events if e.device_type() == torch.autograd.DeviceType.CPU
+            and e.linked_correlation_id() == 0]
+    launched_by = {e.correlation_id(): (e.start_thread_id(), e.start_ns()) for e in host}
+    calls = {name: [(e.start_thread_id(), e.start_ns(), e.end_ns()) for e in host
+                    if e.name() == name] for name in names}
+    device = device_events(prof)
+    out = {}
+    for name, spans in calls.items():
+        ms = 0.0
+        for d in device:
+            op = launched_by.get(d.linked_correlation_id())
+            if op and any(thread == op[0] and a <= op[1] <= b for thread, a, b in spans):
+                ms += d.duration_ns() / 1e6
+        out[name] = (len(spans), ms)
+    return out
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -118,7 +138,11 @@ def main(argv: list[str] | None = None) -> dict:
         end.record()
         torch.cuda.synchronize()
         frame_ms = start.elapsed_time(end) / 20
-        with (traced_as(dcn.deform_conv2d, DCN_RANGE), traced_forward(SwinDecoder, SWIN_RANGE),
+        with (traced_as(dcn.deform_conv2d, RANGES["dcn"]),
+              traced_forward(SwinDecoder, RANGES["swin"]),
+              traced_as(warp.fwarp_using_two_frames, RANGES["splat"]),
+              traced_forward(transformer.FeatureTransformer, RANGES["transformer"]),
+              traced_as(transformer.global_correlation_softmax, RANGES["transformer"]),
               profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof):
             start = time.perf_counter()
             for _ in range(args.requests):
@@ -126,19 +150,23 @@ def main(argv: list[str] | None = None) -> dict:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - start) * 1e3
 
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
-               and e.key not in (DCN_RANGE, SWIN_RANGE)]
+    # Read from the profiler's raw events: building its Python event tree
+    # (key_averages) takes seconds for these requests.
+    by_name: dict[str, list] = {}
+    for e in device_events(prof):
+        if e.name() not in RANGES.values():
+            row = by_name.setdefault(e.name(), [0, 0.0])
+            row[0] += 1
+            row[1] += e.duration_ns() / 1e6
+    kernels = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
     # Each traced call's range on the host: the device time of the kernels
     # launched inside it.
-    dcn_calls, dcn_ms = _range_ms(prof, DCN_RANGE)
-    swin_calls, swin_ms = _range_ms(prof, SWIN_RANGE)
-    kernels.sort(key=lambda e: e.device_time_total, reverse=True)
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    rows = [{"kernel": e.key[:120], "calls_per_request": e.count / args.requests,
-             "ms_per_request": e.device_time_total / 1e3 / args.requests,
-             "share": e.device_time_total / 1e3 / busy_ms if busy_ms else 0.0}
-            for e in kernels]
+    ranged = range_device_ms(prof, RANGES.values())
+    traced = {key: ranged[name] for key, name in RANGES.items()}
+    busy_ms = sum(ms for _, (_, ms) in kernels)
+    rows = [{"kernel": name[:120], "calls_per_request": n / args.requests,
+             "ms_per_request": ms / args.requests, "share": ms / busy_ms if busy_ms else 0.0}
+            for name, (n, ms) in kernels]
     sampler = [r for r in rows if "deformable_sample_kernel" in r["kernel"]]
     summary = {
         "card": card,
@@ -146,19 +174,17 @@ def main(argv: list[str] | None = None) -> dict:
         "model": cfg.model_name,
         "dtype": cfg.compute_dtype,
         "requests": args.requests,
-        "device_ops_per_request": sum(e.count for e in kernels) / args.requests,
+        "device_ops_per_request": sum(n for _, (n, _) in kernels) / args.requests,
         "ms_per_frame_cuda_events": frame_ms,
         "wall_ms_per_request": wall_ms / args.requests,
         "device_busy_ms_per_request": busy_ms / args.requests,
         "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
         "sampler_ms_per_request": sum(r["ms_per_request"] for r in sampler),
         "sampler_share_of_busy": sum(r["share"] for r in sampler),
-        "dcn_calls_per_request": dcn_calls / args.requests,
-        "dcn_ms_per_request": dcn_ms / args.requests,
-        "dcn_share_of_busy": dcn_ms / busy_ms if busy_ms else 0.0,
-        "swin_calls_per_request": swin_calls / args.requests,
-        "swin_ms_per_request": swin_ms / args.requests,
-        "swin_share_of_busy": swin_ms / busy_ms if busy_ms else 0.0,
+        **{f"{key}_{field}": value for key, (calls, ms) in traced.items()
+           for field, value in (("calls_per_request", calls / args.requests),
+                                ("ms_per_request", ms / args.requests),
+                                ("share_of_busy", ms / busy_ms if busy_ms else 0.0))},
         "top": rows[:args.top],
     }
     for r in rows[:args.top]:

@@ -6,8 +6,8 @@ runs them eagerly, one step per call of :func:`train_step`; a batch is a
 dict of tensors on the model's device (``x0``, ``x1``, ``xt``, ``t`` and,
 for flow distillation, ``f0x``, ``f1x``). :func:`make_loss_fn` has the
 recipes of the DAT family (the flagship and DAT-TPU: ``dat_loss``), of
-IFRNet (``ifrnet_loss``), of DCNDAT (``dcndat_loss``) and of DCNTrans
-(``dcntrans_loss``); :func:`make_distill_loss_fn` adds the teacher
+IFRNet (``ifrnet_loss``), of DCNDAT (``dcndat_loss``), of DCNTrans
+(``dcntrans_loss``) and of GMTrans (``gmtrans_loss``); :func:`make_distill_loss_fn` adds the teacher
 term to the DAT family's. The log keys are JAX's. ``model`` may be wrapped in
 ``DistributedDataParallel`` (:mod:`..parallel.ddp`): the loss calls the
 wrapper, which averages the gradients over the processes.
@@ -23,6 +23,7 @@ from ..config import Config
 from ..models.dat import CoarseToFineDAT, dat_loss
 from ..models.dcndat import DCNDAT, dcndat_loss
 from ..models.dcntrans import DCNTrans, dcntrans_loss
+from ..models.gmtrans import GMTrans, gmtrans_loss
 from ..models.ifrnet import IFRNet, ifrnet_loss
 from ..ops import charbonnier_l1
 from .state import TrainState
@@ -77,6 +78,14 @@ def make_loss_fn(model: torch.nn.Module, cfg: Config) -> LossFn:
             pred, inter = model(batch["x0"], batch["x1"], batch["t"], train=True)
             gt_feats = inner.encode(batch["xt"] - inter["mean"])
             return dcntrans_loss(pred, inter, batch, gt_feats)
+
+        return loss_fn
+
+    if isinstance(inner, GMTrans):
+
+        def loss_fn(batch):
+            pred, inter = model(batch["x0"], batch["x1"], batch["t"], train=True)
+            return gmtrans_loss(pred, inter, batch)
 
         return loss_fn
 

@@ -71,10 +71,14 @@ def build_dataset(cfg: Config, is_train: bool = True):
     return cls(**kwargs)
 
 
-def _device_intervals_ms(prof) -> list[tuple[float, float]]:
-    """The traced device operations' ``(start, end)`` in ms."""
-    return [(e.time_range.start / 1e3, e.time_range.end / 1e3) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+def device_events(prof) -> list:
+    """The traced device operations (kernels, copies, sets) as the profiler
+    recorded them, read from its raw results: building its Python event
+    tree (``prof.events()``, ``key_averages()``) costs seconds for one
+    training step's trace."""
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation() and e.duration_ns() > 0]
 
 
 def _union_ms(intervals) -> float:
@@ -92,19 +96,21 @@ def profile_summary(prof, wall_ms: float, steps: int, top: int = 15) -> dict:
     intervals, so overlapping streams count once) and its top operations
     by total time, per step; ``None`` where the trace holds no device
     operation (a run on the CPU)."""
-    intervals = _device_intervals_ms(prof)
-    busy = _union_ms(intervals) if intervals else None
-    ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
-    ops.sort(key=lambda e: e.device_time_total, reverse=True)
-    total = sum(e.device_time_total for e in ops) / 1e3
+    events = device_events(prof)
+    busy = _union_ms([(e.start_ns() / 1e6, e.end_ns() / 1e6) for e in events]) if events else None
+    by_name: dict[str, list] = {}
+    for e in events:
+        row = by_name.setdefault(e.name(), [0, 0.0])
+        row[0] += 1
+        row[1] += e.duration_ns() / 1e6
+    ops = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
+    total = sum(ms for _, ms in by_name.values())
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": None if busy is None else busy / steps,
             "busy_share": None if busy is None else busy / wall_ms,
-            "top": [{"op": e.key[:120], "ms_per_step": e.device_time_total / 1e3 / steps,
-                     "calls_per_step": e.count / steps,
-                     "share": e.device_time_total / 1e3 / total if total else 0.0}
-                    for e in ops[:top]]}
+            "top": [{"op": name[:120], "ms_per_step": ms / steps, "calls_per_step": n / steps,
+                     "share": ms / total if total else 0.0}
+                    for name, (n, ms) in ops[:top]]}
 
 
 class Trainer:
@@ -287,19 +293,31 @@ class Trainer:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
             torch.cuda.synchronize(self.device)
         prof = torch.profiler.profile(activities=activities)
+        start = time.perf_counter()
         prof.start()
+        self._profiler_seconds = {"start": time.perf_counter() - start}
         return prof, time.perf_counter()
 
     def _stop_profile(self, prof, t0: float, steps: int) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall_ms = (time.perf_counter() - t0) * 1e3
+        # The profiler's own cost on the host (start, stop, the summary and
+        # the trace's export), which the traced steps' train_time includes.
+        seconds = self._profiler_seconds
+        start = time.perf_counter()
         prof.stop()
+        seconds["stop"] = time.perf_counter() - start
         self.profile = profile_summary(prof, wall_ms, steps)
+        seconds["summary"] = time.perf_counter() - start - seconds["stop"]
         if self.world.is_main:
             out = Path(self.cfg.log_dir) / "profile"
             out.mkdir(parents=True, exist_ok=True)
+            start = time.perf_counter()
             prof.export_chrome_trace(str(out / "trace.json"))
+            seconds["export"] = time.perf_counter() - start
+        self.profile["profiler_seconds"] = seconds
+        if self.world.is_main:
             (out / "summary.json").write_text(json.dumps(self.profile, indent=1))
 
     @staticmethod
