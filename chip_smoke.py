@@ -16,7 +16,8 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      128x128, B2 16) and of ``validate_synthetic``'s batch (4 pairs of
      256x448, B2 8) for the shared-offset student (G 1, S 8/8/2), the
      non-shared checkpoint (G 4/8/8, S 8/16/32) and the teacher (G 1, S
-     8/16/8), DCNDAT's (C 64, G 8/4/4, S 9) of a 448x256 request and of a
+     8/16/8), DCNDAT's (C 64, G 8/4/4, S 9) and MADAT's (C 32 with G 4 at
+     1/4, C 16 with G 8 at 1/2, S 9) of a 448x256 request and of a
      validation batch (4 pairs of 256x448, B2 8), at the chunk of 8 tiles
      of 512x512 (B2 16) of the student and the non-shared checkpoint, at
      the student's full 720x1280 pair and its flow probe's 176x320 forward (B2 2), and at edge cases (far,
@@ -31,8 +32,8 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      sampler's backward kernel against autograd through the plain version
      (``deformable_sample_backward_plain``) at the student's and the
      teacher's level shapes of a training batch (8 pairs of 128x128, B2
-     16), DCNDAT's at its recipe (12 pairs of 256x256, B2 24) and at phase
-     15's fp32 step (B2 4), and at edge cases (far outside, integer
+     16), DCNDAT's and MADAT's at their recipes (12 pairs of 256x256, B2
+     24) and at phase 15's fp32 step (B2 4), and at edge cases (far outside, integer
      coordinates, every sample of every query on one pixel, odd group
      widths), in fp32 (each gradient within 1e-5 of its max abs) and bf16
      (at most 1 ulp from the fp32 gradient of the bf16 inputs, rounded
@@ -65,7 +66,8 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      for the stride arm's strided level 1 (``sampler_probe.main(2)`` and
      ``main_backward(2)``, on ``F.grid_sample``'s and
      ``grid_sampler_2d_backward``'s same coordinates), and the backward at
-     DCNDAT's training levels (``main_backward(levels="dcndat")``);
+     DCNDAT's and MADAT's training levels (``main_backward(levels="dcndat")``,
+     ``main_backward(levels="madat")``);
   6. gather: the two gather probes
      (``videoframeinterpolation_tpu_torch.tools.perf.gather_probe`` and
      ``.lane_gather_probe``) at every shape: one checked launch each,
@@ -149,9 +151,9 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      ``evaluate --exp_name`` on the card
      in fp32 within 0.005 dB and 5e-5 SSIM of the same on the CPU;
  15. families (runs after 14, on its tree): IFRNet, DAT-TPU, DCNDAT,
-     DCNTrans v1 and GMTrans from ``configs/IFRNet.yaml``,
+     DCNTrans v1, GMTrans and MADAT from ``configs/IFRNet.yaml``,
      ``configs/DAT_TPU.yaml`` and ``configs/archive/{DCNDAT,DCNTrans,
-     GMTrans}.yaml`` at full width, and the quality study's dilated +
+     GMTrans,MADAT}.yaml`` at full width, and the quality study's dilated +
      group-offset DAT-TPU, each with a TrainState drawn with numpy from
      ``FAMILY_SEED`` (``seeded_family_state``: DCNTrans's kernels at
      ``FAMILY_KERNEL_GAIN``, GMTrans's LayerNorm scales at
@@ -159,7 +161,7 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      (a) Each written by the port's checkpoint writer and served through
      ``load_model`` in the YAML's bf16: four 448x256 requests through
      ``interp_pair``, ``FAMILY_LAUNCHES`` bf16 sampler launches each
-     (DCNDAT 3, the others none); one request card against CPU as in
+     (DCNDAT 3, MADAT 2, the others none); one request card against CPU as in
      phase 4; the fp32 frame on the held-out scene
      ``FAMILY_SCENE`` within 0.005 dB (PSNR against its true middle frame)
      and 1e-4 (its mean) of the JAX package's CPU fp32 read
@@ -167,20 +169,23 @@ Phases, each followed by a ``{"phase": ..., "seconds": ...}`` line:
      per request, busy share, and the shares of the deformable
      convolution, the Swin decoders, GMTrans's two splat merges (which
      must record device time) and its feature transformer with the
-     correlation (``tools/profile_serve.py``). (b) One fp32
+     correlation, and MADAT's three self-attentions, its cross-frame
+     attention and its splat merge (``tools/profile_serve.py``). (b) One fp32
      training step of each (its own recipe, TF32 off, batch 2 at 128x128)
      card against CPU to phase 10 (a)'s limits, with ``FAMILY_LAUNCHES``
      forward and backward launches; the production trainer's
      CLI with each YAML at its recipe (IFRNet batch 6, crop 224, on the
      tree's first 48 sequences, and GMTrans batch 12, crop 224, both on
-     the forward flows phase 14's tree carries; DAT-TPU and DCNDAT batch
-     12, crop 256; DCNTrans batch 8, crop 224, on the tree's first 64
-     sequences; DCNDAT, DCNTrans and GMTrans on ``Vimeo90KwFlow``) for one
+     the forward flows phase 14's tree carries; DAT-TPU, DCNDAT and MADAT
+     batch 12, crop 256; DCNTrans batch 8, crop 224, on the tree's first 64
+     sequences; DCNDAT, DCNTrans and GMTrans on ``Vimeo90KwFlow``, MADAT on
+     the YAML's ``Vimeo90K``) for one
      epoch of 8 steps, the families in turn in one child process,
      ``RUN_FAMILY``'s cadences and ``FAMILY_PROFILE_STEPS`` traced: ms per
      step, ``data_time`` share, peak memory, busy share,
      ``FAMILY_LAUNCHES`` launches per step, backward step, validation batch
-     and image summary, ``latest``,
+     and image summary (MADAT's backward on the path ``_backward_plan``
+     picks for each of its levels), ``latest``,
      ``epoch_001`` and ``best_vimeo90k`` restoring bit for bit;
      ``evaluate --exp_name`` on the card in fp32 within 0.005 dB and 5e-5
      SSIM of the same on the CPU. (c) ``tools/head_to_head.py`` on the
@@ -352,9 +357,10 @@ TPU_EVAL_BEST = {"DAT_fast": (39.0322, 0.98176), "DAT": (37.9752, 0.97795),
 # Phase 2, the sampler's backward kernel: name -> (B2, H, W, C, G, S, residual
 # scale, flow magnitude). The levels of a training batch (8 pairs of
 # 128x128, B2 16) of the student (S 8/8/2) and the teacher (S 8/16/8; its
-# lv3 is the student's); DCNDAT's (C 64, G 8/4/4, S 9) at its recipe (12
-# pairs of 256x256, B2 24) and at phase 15's fp32 step (2 pairs of 128x128,
-# B2 4); then edge cases: every tap outside, integer
+# lv3 is the student's); DCNDAT's (C 64, G 8/4/4, S 9) and MADAT's (C 32
+# with G 4 at 1/4, C 16 with G 8 at 1/2; S 9) at their recipes (12 pairs of
+# 256x256, B2 24) and at phase 15's fp32 step (2 pairs of 128x128, B2 4);
+# then edge cases: every tap outside, integer
 # coordinates, groups of 9 and 7 channels, and every sample of every query
 # on one pixel (all atomics of the call into four taps).
 BACKWARD_CASES = {
@@ -369,6 +375,10 @@ BACKWARD_CASES = {
     "step_dcndat_lv3": (4, 16, 16, 64, 8, 9, 2.0, 4.0),
     "step_dcndat_lv2": (4, 32, 32, 64, 4, 9, 2.0, 4.0),
     "step_dcndat_lv1": (4, 64, 64, 64, 4, 9, 2.0, 4.0),
+    "train_madat_lv2": (24, 64, 64, 32, 4, 9, 2.0, 4.0),
+    "train_madat_lv1": (24, 128, 128, 16, 8, 9, 2.0, 4.0),
+    "step_madat_lv2": (4, 32, 32, 32, 4, 9, 2.0, 4.0),
+    "step_madat_lv1": (4, 64, 64, 16, 8, 9, 2.0, 4.0),
     "far_outside": (2, 9, 13, 40, 8, 3, 30.0, 1e4),
     "integer": (2, 16, 16, 72, 1, 8, 2.0, 3.0),
     "cg9": (1, 9, 13, 72, 8, 3, 30.0, 4.0),
@@ -438,12 +448,13 @@ FAMILIES = {"IFRNet": "configs/IFRNet.yaml", "DAT_TPU": "configs/DAT_TPU.yaml",
             "DAT_TPU_dilated_goff": "configs/DAT_TPU.yaml",
             "DCNDAT": "configs/archive/DCNDAT.yaml",
             "DCNTrans": "configs/archive/DCNTrans.yaml",
-            "GMTrans": "configs/archive/GMTrans.yaml"}
+            "GMTrans": "configs/archive/GMTrans.yaml",
+            "MADAT": "configs/archive/MADAT.yaml"}
 # Sampler launches per forward (and, in training, backward launches per
-# step) of each family: DCNDAT's three levels each sample both frames in one
-# launch; the others launch none.
+# step) of each family: DCNDAT's three levels and MADAT's two deformable
+# decoders each sample both frames in one launch; the others launch none.
 FAMILY_LAUNCHES = {"IFRNet": 0, "DAT_TPU": 0, "DAT_TPU_dilated_goff": 0, "DCNDAT": 3,
-                   "DCNTrans": 0, "GMTrans": 0}
+                   "DCNTrans": 0, "GMTrans": 0, "MADAT": 2}
 FAMILY_SEED = 15
 FAMILY_STEP = 1000
 # The factor on each family's U(+-1/sqrt(fan_in)) kernels (default 1). At
@@ -472,20 +483,22 @@ JAX_FAMILIES = {"IFRNet": (34.58601270023546, 0.48564809877938214),
                 "DAT_TPU_dilated_goff": (19.246799060622894, 0.5084678643933807),
                 "DCNDAT": (19.49973414223694, 0.4963412535387414),
                 "DCNTrans": (19.837724593649583, 0.49248217925291793),
-                "GMTrans": (18.732246574821716, 0.5022372869089373)}
+                "GMTrans": (18.732246574821716, 0.5022372869089373),
+                "MADAT": (19.268474782562507, 0.49687330369531646)}
 FAMILY_MEAN_TOL = 1e-4
 # The production trainer on phase 14's tree at each YAML's recipe (IFRNet
 # batch 6, crop 224, and GMTrans batch 12, crop 224, with the forward flows
-# written for their sequences; DAT-TPU and DCNDAT batch 12, crop 256;
+# written for their sequences; DAT-TPU, DCNDAT and MADAT batch 12, crop 256;
 # DCNTrans batch 8, crop 224), for one epoch of 8 steps: the training
 # sequences each reads (a family that reads fewer than the tree's 96 gets a
 # root beside it that lists its first ones), its cadences cut, the traced
 # steps. configs/archive/DCNDAT.yaml, DCNTrans.yaml and GMTrans.yaml name
 # data_name Vimeo90K, whose batches carry no flows for their flow
 # distillation: their runs read them (Vimeo90KwFlow, with the YAML's
-# flow_dir and distill_bwd).
+# flow_dir and distill_bwd). configs/archive/MADAT.yaml's loss is
+# photometric only: it trains on the YAML's Vimeo90K as it stands.
 FAMILY_TRAIN_SEQUENCES = {"IFRNet": 48, "DAT_TPU": 96, "DCNDAT": 96, "DCNTrans": 64,
-                          "GMTrans": 96}
+                          "GMTrans": 96, "MADAT": 96}
 FAMILY_TRAIN_SETS = {"DCNDAT": ["data_name=Vimeo90KwFlow"],
                      "DCNTrans": ["data_name=Vimeo90KwFlow"],
                      "GMTrans": ["data_name=Vimeo90KwFlow"]}
@@ -577,13 +590,15 @@ class Phase:
         return False
 
 
-def sampler_cases(gen, level_inputs, level_sets, channels):
+def sampler_cases(gen, sampler_probe, level_sets):
     """name -> (feat, flow, residual, storage offset of feat in elements), fp32
-    on the card: the level shapes (``channels[kind]`` channels, else 72),
-    then inputs whose sample positions or widths hit the sampler's edge
-    conditions."""
-    cases = {f"{kind}_{name}": (*level_inputs(gen, B2, h, w, channels.get(kind, 72), G, S,
-                                              sc), 0)
+    on the card: the level shapes (the probe's ``LEVEL_CHANNELS`` of each
+    set, else 72), then inputs whose sample positions or widths hit the
+    sampler's edge conditions."""
+    level_inputs = sampler_probe.level_inputs
+    cases = {f"{kind}_{name}": (*level_inputs(
+        gen, B2, h, w, sampler_probe.level_channels(sampler_probe.LEVEL_CHANNELS.get(kind, 72),
+                                                    name), G, S, sc), 0)
              for kind, levels in level_sets.items() for name, B2, h, w, G, S, sc in levels}
     B2, h, w, C, S = 2, 32, 56, 72, 8
     feat, flow, res = level_inputs(gen, B2, h, w, C, 1, S, 2.0)
@@ -621,7 +636,9 @@ def path_level_sets(sampler_probe) -> dict:
     sends them (the non-shared lv1 of that chunk is in ``WIDE_CASES``); the
     student's full 720x1280 pair (B2 2), which phase 12 serves whole as the
     tiled frame's reference, and its flow probe, the 1/4-scale forward at
-    176x320 (B2 2) that every tiled request of phase 12 runs."""
+    176x320 (B2 2) that every tiled request of phase 12 runs; and MADAT's
+    two levels of a validation batch (4 pairs of 256x448, B2 8), in which
+    phase 15's trainer validates and ``evaluate --exp_name`` runs."""
     levels = sampler_probe._levels
     shared = sampler_probe.CONFIG_LEVELS["shared"]
     sets = {f"eval4_{kind}": levels(8, 256, 448, gs)
@@ -631,6 +648,7 @@ def path_level_sets(sampler_probe) -> dict:
                                       sampler_probe.CONFIG_LEVELS["non_shared"])[:2]
     sets["hd_full_shared"] = levels(2, 720, 1280, shared)
     sets["hd_probe_shared"] = levels(2, 176, 320, shared)
+    sets["eval4_madat"] = sampler_probe.madat_levels(8, 256, 448)
     return sets
 
 
@@ -770,9 +788,8 @@ def main() -> int:
     max_err = {}
     with Phase("kernel"):
         reached = set()
-        cases = sampler_cases(gen, sampler_probe.level_inputs,
-                              {**sampler_probe.LEVEL_SETS, **path_level_sets(sampler_probe)},
-                              sampler_probe.LEVEL_CHANNELS)
+        cases = sampler_cases(gen, sampler_probe,
+                              {**sampler_probe.LEVEL_SETS, **path_level_sets(sampler_probe)})
         for name, (feat32, flow32, res32, offset) in cases.items():
             err = check_sampler_case(name, feat32, flow32, res32, offset, reached)
             max_err["deformable_sample"] = max(max_err.get("deformable_sample", 0.0), err)
@@ -879,8 +896,10 @@ def main() -> int:
         del model32
         per_level = sampler_probe.main()
         per_level_bwd = sampler_probe.main_backward()
-        # DCNDAT's training levels (C 64, G 8/4/4, S 9; B2 24).
+        # DCNDAT's training levels (C 64, G 8/4/4, S 9; B2 24), and MADAT's
+        # (C 32 with G 4, C 16 with G 8; S 9; B2 24).
         per_level_bwd_dcndat = sampler_probe.main_backward(levels="dcndat")
+        per_level_bwd_madat = sampler_probe.main_backward(levels="madat")
         # The stride arm's strided level 1 (phase 16 holds its kernels).
         strided = {"forward": sampler_probe.main(stride=2),
                    "backward": sampler_probe.main_backward(stride=2)}
@@ -914,9 +933,21 @@ def main() -> int:
                                                            "library_ms", "share_of_bound")}
                                     for lv, r in dcndat_bwd.items()},
             "card": card}})
+        madat_fwd = per_level["madat"]["bfloat16"]
+        madat_bwd = per_level_bwd_madat["bfloat16"]
+        emit({"madat_sampler_speed": {
+            "served_bf16": {lv: {k: r[k] for k in ("ms", "bound_ms", "library_ms",
+                                                   "share_of_bound", "library_over_kernel")}
+                            for lv, r in madat_fwd.items()},
+            "train_bf16_backward": {lv: {k: r[k] for k in ("ms", "global_ms", "bound_ms",
+                                                           "library_ms", "share_of_bound",
+                                                           "plan")}
+                                    for lv, r in madat_bwd.items()},
+            "card": card}})
         bwd_ops, want_ops = {}, {}
         for prefix, by_dtype in (("", per_level_bwd), ("strided_", strided["backward"]),
-                                 ("dcndat_", per_level_bwd_dcndat)):
+                                 ("dcndat_", per_level_bwd_dcndat),
+                                 ("madat_", per_level_bwd_madat)):
             for dtype, rows in by_dtype.items():
                 for name, r in rows.items():
                     for run, path in (("planned", r["plan"]["path"]), ("global", "global")):
@@ -1047,6 +1078,8 @@ def main() -> int:
         "dtype": "bfloat16",
         "dcndat_request": {k: total(dcndat_fwd.values(), k) for k in (
             "ms", "plain_ms", "bound_ms", "library_ms")},
+        "madat_request": {k: total(madat_fwd.values(), k) for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms")},
         "per_level": per_level,
         "card": card,
     }]
@@ -1079,8 +1112,11 @@ def main() -> int:
         "dtype": "bfloat16",
         "dcndat_train_step": {k: total(dcndat_bwd.values(), k) for k in (
             "ms", "global_ms", "plain_ms", "bound_ms", "library_ms")},
+        "madat_train_step": {k: total(madat_bwd.values(), k) for k in (
+            "ms", "global_ms", "plain_ms", "bound_ms", "library_ms")},
         "per_level": per_level_bwd,
         "per_level_dcndat": per_level_bwd_dcndat,
+        "per_level_madat": per_level_bwd_madat,
         "card": card,
     })
     strided_fwd = strided["forward"]["stride_arm"]["bfloat16"]["lv1"]
@@ -2596,6 +2632,10 @@ def serve_seeded(name: str, yaml: Path, tree, ckpt: Path, card: str, path_launch
     if name == "GMTrans" and summary["splat_calls_per_request"] != 2:
         raise AssertionError(f"GMTrans: {summary['splat_calls_per_request']} traced splat "
                              "merges per request; expected 2")
+    if name == "MADAT" and [summary[f"{part}_calls_per_request"] for part in (
+            "self_attn", "corr", "splat")] != [3, 1, 1]:
+        raise AssertionError("MADAT: traced self-attentions, cross-frame attentions and splat "
+                             f"merges per request {summary}; expected 3, 1 and 1")
 
 
 def family_step_card_vs_cpu(ckpt: Path, name: str) -> dict:
@@ -2777,6 +2817,8 @@ def train_families(tmp: Path, card: str, path_launches: dict, launched: set,
                                  f"sampler launches {got}, expected {expect}")
         if not r["profile"]["busy_share"] or not 0 < r["profile"]["busy_share"] <= 1:
             raise AssertionError(f"{name}: the profile shows no device time: {r['profile']}")
+        if name == "MADAT":
+            check_madat_backward_plans(cfg, spe, r["backward_path_launches"])
         ckpts = CheckpointManager(exp, create=False)
         restored = {}
         for ck in ("latest", "epoch_001", f"best_{cfg.save_best_benchmark}"):
@@ -2816,6 +2858,25 @@ def train_families(tmp: Path, card: str, path_launches: dict, launched: set,
                 or abs(diffs["val/vimeo90k_ssim"]) > EVAL_SSIM_TOL):
             raise AssertionError(f"{name}: evaluate --exp_name, card {on_card} against CPU "
                                  f"{cpu_scores}")
+
+
+def check_madat_backward_plans(cfg, steps: int, by_path: dict) -> None:
+    """MADAT's training backward launches, by path, against the plan
+    ``_backward_plan`` makes for its two levels at the run's batch and
+    crop (one launch of each level per step)."""
+    from videoframeinterpolation_tpu_torch.kernels.window_sample import _backward_plan
+    from videoframeinterpolation_tpu_torch.tools.perf import sampler_probe
+
+    plans = {lv: _backward_plan(B2, h, w, sampler_probe.MADAT_CHANNELS[lv], G, S)
+             for lv, B2, h, w, G, S, _ in sampler_probe.madat_levels(
+                 2 * cfg.batch_size, cfg.crop_h, cfg.crop_w)}
+    expect = dict.fromkeys(by_path, 0)
+    for plan in plans.values():
+        expect[plan.path] += steps
+    emit({"family": "MADAT", "backward_plans": {lv: p._asdict() for lv, p in plans.items()},
+          "backward_by_path": by_path, "expected_by_path": expect})
+    if by_path != expect:
+        raise AssertionError(f"MADAT: backward launches by path {by_path}, planned {expect}")
 
 
 def family_head_to_head(tmp: Path, card: str, path_launches: dict) -> None:

@@ -17,7 +17,7 @@ Prints one JSON line per read, for the constants of ``chip_smoke.py``:
     ``evaluate.py`` (fp32) and ``interpolate.py`` (the YAML's bf16) make it
     (``JAX_HD_PLAN``);
   * ``families``: the fp32 frame of IFRNet, DAT-TPU, the dilated +
-    group-offset DAT-TPU, DCNDAT, DCNTrans v1 and GMTrans (``chip_smoke.FAMILIES``,
+    group-offset DAT-TPU, DCNDAT, DCNTrans v1, GMTrans and MADAT (``chip_smoke.FAMILIES``,
     at full width from their YAMLs) at t = 0.5 on the held-out scene
     ``chip_smoke.FAMILY_SCENE``, with the parameters
     ``chip_smoke.seeded_family_state`` draws, written by the port's

@@ -2,8 +2,8 @@
 
 Ported: the flagship ``DATwConstantnC`` (alias ``DATwConstantnCv1``),
 ``IFRNet``, ``DATwConstantnCTPU``, ``DCNDAT`` (alias ``DCNDATv1``),
-``DCNTrans`` (alias ``DCNTransv1``) and ``GMTrans`` (alias
-``GMTransv1``), each built from a ``Config`` as the JAX registry builds
+``DCNTrans`` (alias ``DCNTransv1``), ``GMTrans`` (alias ``GMTransv1``)
+and ``MADAT`` (alias ``MADATv1``), each built from a ``Config`` as the JAX registry builds
 it (``videoframeinterpolation_tpu/models/__init__.py:39-102``).
 ``DCNTransFwarp`` (alias ``DCNTransv2``) raises, as it needs
 ``DeformableConv2dWithFwarp``; the other archive families are not ported
@@ -25,6 +25,7 @@ from .dcndat import DCNDAT, dcndat_loss
 from .dcntrans import DCNTrans, dcntrans_loss
 from .gmtrans import GMTrans, gmtrans_loss
 from .ifrnet import IFRNet, ifrnet_loss
+from .madat import MADAT, madat_loss
 
 
 def _dat(c: Config, dtype: torch.dtype) -> DATwConstantnC:
@@ -69,6 +70,12 @@ def _gmtrans(c: Config, dtype: torch.dtype) -> GMTrans:
     return GMTrans(compute_dtype=dtype)
 
 
+def _madat(c: Config, dtype: torch.dtype) -> MADAT:
+    # As in JAX, motion_dim is MADAT's own (64), not the config's.
+    return MADAT(channels=tuple(c.channels), depths=tuple(c.depths), mlp_ratio=c.mlp_ratio,
+                 compute_dtype=dtype)
+
+
 def _ifrnet(c: Config, dtype: torch.dtype) -> IFRNet:
     # As in JAX, the widths are IFRNet's own, not the config's ``channels``.
     return IFRNet(compute_dtype=dtype)
@@ -78,7 +85,8 @@ MODEL_REGISTRY = {"DATwConstantnC": _dat, "DATwConstantnCv1": _dat,
                   "DATwConstantnCTPU": _dat_tpu, "IFRNet": _ifrnet, "DCNDAT": _dcndat,
                   "DCNDATv1": _dcndat, "DCNTrans": _dcntrans, "DCNTransv1": _dcntrans,
                   "DCNTransFwarp": _dcntrans_fwarp, "DCNTransv2": _dcntrans_fwarp,
-                  "GMTrans": _gmtrans, "GMTransv1": _gmtrans}
+                  "GMTrans": _gmtrans, "GMTransv1": _gmtrans, "MADAT": _madat,
+                  "MADATv1": _madat}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -110,6 +118,6 @@ def create_model(cfg: Config, params_dtype: torch.dtype | None = None) -> nn.Mod
 
 
 __all__ = ["CoarseToFineDAT", "DATwConstantnC", "DATwConstantnCTPU", "DCNDAT", "DCNTrans",
-           "GMTrans", "IFRNet", "compute_dtype", "create_model", "dat_loss", "dat_tpu_loss",
-           "dcndat_loss", "dcntrans_loss", "gmtrans_loss", "ifrnet_loss", "multi_t_apply",
-           "MODEL_REGISTRY"]
+           "GMTrans", "IFRNet", "MADAT", "compute_dtype", "create_model", "dat_loss",
+           "dat_tpu_loss", "dcndat_loss", "dcntrans_loss", "gmtrans_loss", "ifrnet_loss",
+           "madat_loss", "multi_t_apply", "MODEL_REGISTRY"]

@@ -31,8 +31,6 @@ refuses it, as JAX's does.
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
@@ -40,17 +38,10 @@ from ..kernels.window_sample import deformable_sample
 from ..nn import (BasicResPixelShuffleGenerator, ConvPReLU, DeformableConv2d, FeedForward,
                   HalfChannelConv5ResBlock, SameChannelResEncoder, SampleAttention, conv,
                   conv_transpose_x2, sigmoid)
-from ..nn.blocks import Dense, zero_init
+from ..nn.blocks import Dense, lecun_normal_init, zero_init
 from ..ops import (bwarp, charbonnier_ada, charbonnier_l1, deform_conv2d, geometry_loss,
                    get_robust_weight, resize_bilinear, scale_resize, ternary_loss)
 from .base import norm_w_rgb_mean
-
-
-def lecun_normal_init(w: torch.Tensor, fan_in: int) -> None:
-    """flax's default ``Dense`` kernel init, ``lecun_normal``: a normal
-    truncated at two standard deviations, scaled to variance ``1 / fan_in``."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std)
 
 
 class DeformableConv2dGivenOffset(nn.Module):

@@ -59,6 +59,14 @@ def zero_init(w: torch.Tensor, fan_in: int) -> None:
     nn.init.zeros_(w)
 
 
+def lecun_normal_init(w: torch.Tensor, fan_in: int) -> None:
+    """flax's default ``Dense`` and ``Conv`` kernel init, ``lecun_normal``: a
+    normal truncated at two standard deviations, scaled to variance ``1 /
+    fan_in``."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std)
+
+
 def trunc_normal_02(w: torch.Tensor, fan_in: int = 0) -> None:
     """flax's ``truncated_normal(stddev=0.02)``: ``N(0, 0.02)`` truncated at
     two standard deviations, with no correction of the spread (the Swin

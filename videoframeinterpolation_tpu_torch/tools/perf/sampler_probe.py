@@ -1,7 +1,7 @@
 """The DAT levels' deformable sampler on the card, at the level shapes the port's paths launch.
 
     python -m videoframeinterpolation_tpu_torch.tools.perf.sampler_probe \
-        [--backward [--train_levels student|dcndat]] [--stride 2]
+        [--backward [--train_levels student|dcndat|madat]] [--stride 2]
 
 Times :func:`...kernels.window_sample.deformable_sample` at the three levels
 of each served configuration: the shared-offset student
@@ -9,9 +9,11 @@ of each served configuration: the shared-offset student
 (``configs/DAT.yaml``: G 4/8/8, S 8/16/32) and the distillation teacher
 (G 1, S 8/16/8), each at a 448x256 request (B2 2: both frames of one
 pair) and at a held-out evaluation batch (8 pairs of 128x128, B2 16), with
-C 72 (nf 72); and DCNDAT (``configs/archive/DCNDAT.yaml``: C 64, G 8/4/4,
+C 72 (nf 72); DCNDAT (``configs/archive/DCNDAT.yaml``: C 64, G 8/4/4,
 S 9) at a 448x256 request and a validation batch (4 pairs of 256x448, B2
-8); in bf16 and fp32. Per level it prints the kernel's time on
+8); and MADAT's two levels (``configs/archive/MADAT.yaml``: C 32 with G 4
+at 1/4, C 16 with G 8 at 1/2, S 9) at a 448x256 request; in bf16 and
+fp32. Per level it prints the kernel's time on
 the device's clock (calls captured in a CUDA graph, marginal over 16
 calls), its time issued from Python, the plain version's,
 ``F.grid_sample``'s on the same work (device clock, inputs arranged
@@ -25,7 +27,9 @@ With ``--backward`` it times the backward (``_launch_backward``, the
 whole call: its kernels and whatever buffers and casts its path needs) at
 the student's three levels of a training batch (``TRAIN_LEVELS``: 8 pairs
 of 128x128, B2 16, S 8/8/2), or with ``--train_levels dcndat`` at DCNDAT's
-(its recipe's 12 pairs of 256x256, B2 24, C 64, G 8/4/4, S 9), on the
+(its recipe's 12 pairs of 256x256, B2 24, C 64, G 8/4/4, S 9), or with
+``--train_levels madat`` at MADAT's (its recipe's 12 pairs of 256x256, B2
+24: 64x64 with C 32, G 4 and 128x128 with C 16, G 8; S 9), on the
 path ``_backward_plan`` picks and on the global path forced, beside autograd through the plain version,
 ``F.grid_sample``'s backward on the same work (``aten::grid_sampler_2d_backward``,
 both gradients) and the bound: bytes, each input (feat, flow, residual,
@@ -83,23 +87,48 @@ def _levels(B2: int, H: int, W: int, gs, scales=SCALES) -> tuple:
                  for i, ((G, S), d) in enumerate(zip(gs, (8, 4, 2))))
 
 
+# MADAT (configs/archive/MADAT.yaml): two deformable levels, lv2 at 1/4
+# (C 32, G 4: 8 channels per group) and lv1 at 1/2 (C 16, G 8: 2 channels
+# per group), S 9 and offset scale 2 at both.
+MADAT_CHANNELS = {"lv2": 32, "lv1": 16}
+
+
+def madat_levels(B2: int, H: int, W: int) -> tuple:
+    """MADAT's two sampler levels of an ``H x W`` input, as :func:`_levels`
+    gives the DAT levels (each level's channels in ``MADAT_CHANNELS``)."""
+    return (("lv2", B2, H // 4, W // 4, 4, 9, 2.0), ("lv1", B2, H // 2, W // 2, 8, 9, 2.0))
+
+
 # A 448x256 request (B2 2) and a held-out evaluation batch (8 pairs of
-# 128x128, B2 16) of each configuration, and DCNDAT's 448x256 request and
-# validation batch (4 pairs of 256x448, B2 8).
+# 128x128, B2 16) of each configuration, DCNDAT's 448x256 request and
+# validation batch (4 pairs of 256x448, B2 8), and MADAT's 448x256 request.
 LEVEL_SETS = {**{kind: _levels(2, 256, 448, gs) for kind, gs in CONFIG_LEVELS.items()},
               **{f"eval_{kind}": _levels(16, 128, 128, gs)
                  for kind, gs in CONFIG_LEVELS.items()},
               "dcndat": _levels(2, 256, 448, DCNDAT_LEVELS, DCNDAT_SCALES),
-              "eval4_dcndat": _levels(8, 256, 448, DCNDAT_LEVELS, DCNDAT_SCALES)}
-# The channels of each level set (C unless named here).
-LEVEL_CHANNELS = {"dcndat": DCNDAT_C, "eval4_dcndat": DCNDAT_C}
+              "eval4_dcndat": _levels(8, 256, 448, DCNDAT_LEVELS, DCNDAT_SCALES),
+              "madat": madat_levels(2, 256, 448)}
+# The channels of each level set (C unless named here; a dict gives each
+# level its own), and of MADAT's validation batch (4 pairs of 256x448, B2
+# 8), which chip_smoke.py holds and this probe does not time.
+LEVEL_CHANNELS = {"dcndat": DCNDAT_C, "eval4_dcndat": DCNDAT_C, "madat": MADAT_CHANNELS,
+                  "eval4_madat": MADAT_CHANNELS}
+
+
+def level_channels(channels, level: str) -> int:
+    """A level's channels from a level set's entry of ``LEVEL_CHANNELS``
+    (or ``TRAIN_LEVEL_SETS``): one number for every level, or a dict by
+    level name."""
+    return channels[level] if isinstance(channels, dict) else channels
 
 
 # The student's levels of a training batch (8 pairs of 128x128, B2 16), and
-# DCNDAT's at its recipe (12 pairs of 256x256, B2 24), each with its channels.
+# DCNDAT's and MADAT's at their recipes (12 pairs of 256x256, B2 24), each
+# with its channels.
 TRAIN_LEVELS = _levels(16, 128, 128, CONFIG_LEVELS["shared"])
 TRAIN_LEVEL_SETS = {"student": (TRAIN_LEVELS, C),
-                    "dcndat": (_levels(24, 256, 256, DCNDAT_LEVELS, DCNDAT_SCALES), DCNDAT_C)}
+                    "dcndat": (_levels(24, 256, 256, DCNDAT_LEVELS, DCNDAT_SCALES), DCNDAT_C),
+                    "madat": (madat_levels(24, 256, 256), MADAT_CHANNELS)}
 
 # The attn_stride variant's level 1 (the quality study's stride arm: shared
 # offsets, S 16, the query grid of stride 2 over the 1/2-scale features),
@@ -235,9 +264,9 @@ def main_backward(stride: int = 1, levels: str = "student") -> dict:
     train_levels, channels = (TRAIN_LEVEL_SETS[levels] if stride == 1
                               else (STRIDED_TRAIN_LEVELS, C))
     for name, B2, h, w, G, S, scale in train_levels:
-        fp32 = level_inputs(gen, B2, h, w, channels, G, S, scale, stride=stride)
-        grad_out = torch.randn((B2, S, h * w // stride ** 2, channels), generator=gen,
-                               device="cuda")
+        c = level_channels(channels, name)
+        fp32 = level_inputs(gen, B2, h, w, c, G, S, scale, stride=stride)
+        grad_out = torch.randn((B2, S, h * w // stride ** 2, c), generator=gen, device="cuda")
         for dtype in (torch.bfloat16, torch.float32):
             row = backward_level_times(*(x.to(dtype) for x in (*fp32, grad_out)), stride=stride)
             rows.setdefault(row["dtype"], {})[name] = row
@@ -255,8 +284,8 @@ def main(stride: int = 1) -> dict:
     rows: dict = {}
     for kind, levels in (LEVEL_SETS if stride == 1 else STRIDED_LEVELS).items():
         for name, B2, h, w, G, S, scale in levels:
-            fp32 = level_inputs(gen, B2, h, w, LEVEL_CHANNELS.get(kind, C), G, S, scale,
-                                stride=stride)
+            fp32 = level_inputs(gen, B2, h, w, level_channels(LEVEL_CHANNELS.get(kind, C), name),
+                                G, S, scale, stride=stride)
             for dtype in (torch.bfloat16, torch.float32):
                 row = level_times(*(x.to(dtype) for x in fp32), stride=stride)
                 rows.setdefault(kind, {}).setdefault(row["dtype"], {})[name] = row
@@ -273,7 +302,7 @@ if __name__ == "__main__":
     ap.add_argument("--backward", action="store_true")
     ap.add_argument("--stride", type=int, choices=(1, STRIDE), default=1)
     ap.add_argument("--train_levels", choices=sorted(TRAIN_LEVEL_SETS), default="student",
-                    help="with --backward: the student's training levels or DCNDAT's")
+                    help="with --backward: the student's training levels, DCNDAT's or MADAT's")
     args = ap.parse_args()
     if args.backward:
         main_backward(args.stride, args.train_levels)

@@ -10,14 +10,17 @@ checkpoint (default: the shipped DAT_fast student), or a YAML file of any
 ported model with ``--ckpt``. Traces ``--requests`` requests after
 warm-up, and prints the device kernels by total time, the device
 operations per request, the deformable sampler's share, the device's busy
-share of the traced wall time, and the shares of four parts of the models
+share of the traced wall time, and the shares of six parts of the models
 (``RANGES``: the device time of the kernels their calls launch, each call
 traced inside a ``record_function`` range that only this tool opens): the
 plain deformable convolution (``ops/dcn.py:deform_conv2d``), the Swin
 decoders (``nn/swin.py:SwinDecoder``: DCNTrans's and GMTrans's two), the
 forward-warp merges (``ops/warp.py:fwarp_using_two_frames``: GMTrans's
-two splats per request) and GMTrans's feature transformer with its global
-correlation (``nn/transformer.py``). Needs a CUDA device.
+two splats per request, MADAT's one), GMTrans's feature transformer with
+its global correlation (``nn/transformer.py``), and MADAT's full
+attentions: its three self-attentions over every token of a level
+(``nn/madat.py:FlowSelfAttnPropagation``) and its cross-frame attention
+at 1/8 (``nn/madat.py:InterFrameAttention``). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,13 +39,15 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from ..config import PRESETS
 from ..interpolate import config_and_ckpt, load_model
 from ..nn import transformer
+from ..nn.madat import FlowSelfAttnPropagation, InterFrameAttention
 from ..nn.swin import SwinDecoder
 from ..ops import dcn, warp
 from ..train.trainer import device_events
 
 # The traced parts: summary key -> the record_function range's name.
 RANGES = {"dcn": "deform_conv2d", "swin": "swin_decoder", "splat": "fwarp_using_two_frames",
-          "transformer": "feature_transformer"}
+          "transformer": "feature_transformer", "self_attn": "flow_self_attn_propagation",
+          "corr": "inter_frame_attention"}
 
 
 @contextlib.contextmanager
@@ -143,6 +148,8 @@ def main(argv: list[str] | None = None) -> dict:
               traced_as(warp.fwarp_using_two_frames, RANGES["splat"]),
               traced_forward(transformer.FeatureTransformer, RANGES["transformer"]),
               traced_as(transformer.global_correlation_softmax, RANGES["transformer"]),
+              traced_forward(FlowSelfAttnPropagation, RANGES["self_attn"]),
+              traced_forward(InterFrameAttention, RANGES["corr"]),
               profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof):
             start = time.perf_counter()
             for _ in range(args.requests):

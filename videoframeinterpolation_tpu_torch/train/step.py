@@ -7,7 +7,8 @@ dict of tensors on the model's device (``x0``, ``x1``, ``xt``, ``t`` and,
 for flow distillation, ``f0x``, ``f1x``). :func:`make_loss_fn` has the
 recipes of the DAT family (the flagship and DAT-TPU: ``dat_loss``), of
 IFRNet (``ifrnet_loss``), of DCNDAT (``dcndat_loss``), of DCNTrans
-(``dcntrans_loss``) and of GMTrans (``gmtrans_loss``); :func:`make_distill_loss_fn` adds the teacher
+(``dcntrans_loss``), of GMTrans (``gmtrans_loss``) and of MADAT (``madat_loss``);
+:func:`make_distill_loss_fn` adds the teacher
 term to the DAT family's. The log keys are JAX's. ``model`` may be wrapped in
 ``DistributedDataParallel`` (:mod:`..parallel.ddp`): the loss calls the
 wrapper, which averages the gradients over the processes.
@@ -25,6 +26,7 @@ from ..models.dcndat import DCNDAT, dcndat_loss
 from ..models.dcntrans import DCNTrans, dcntrans_loss
 from ..models.gmtrans import GMTrans, gmtrans_loss
 from ..models.ifrnet import IFRNet, ifrnet_loss
+from ..models.madat import MADAT, madat_loss
 from ..ops import charbonnier_l1
 from .state import TrainState
 
@@ -86,6 +88,14 @@ def make_loss_fn(model: torch.nn.Module, cfg: Config) -> LossFn:
         def loss_fn(batch):
             pred, inter = model(batch["x0"], batch["x1"], batch["t"], train=True)
             return gmtrans_loss(pred, inter, batch)
+
+        return loss_fn
+
+    if isinstance(inner, MADAT):
+
+        def loss_fn(batch):
+            pred, inter = model(batch["x0"], batch["x1"], batch["t"], train=True)
+            return madat_loss(pred, inter, batch)
 
         return loss_fn
 
